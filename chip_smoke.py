@@ -5,19 +5,26 @@ Run from the root of the repository: ``python3 chip_smoke.py``. Phases, one
 line each, and any failure raises and exits nonzero:
 
 1. device: the card's name, ``nvidia-smi``'s name and power limit, versions;
-2. build: the CUDA kernels from ``ndzip_tpu_torch/csrc`` with nvcc;
-3. each kernel against its plain PyTorch version on the card, exact, on
-   small fp32 1D cases (borders, zeros, incompressible bits, constants, one
-   block, special floats);
-4. the slice: ``compress_device`` then ``decompress_device(stream[:length])``
-   at 2^24 elements (bench.py's headline data) and at 2^28 + 17: streams
-   equal to the plain version's on the card, bit-exact round trips, and the
-   kernels' launch counts over that run. The tests hold the plain version's
-   stream against the reference package byte for byte; this script imports
-   nothing of that package;
+2. build: the CUDA kernels from ``ndzip_tpu_torch/csrc`` with nvcc, one nvcc
+   per source, all started together;
+3. each kernel against its plain PyTorch version on the card, exact: the 1D
+   kernels on small fp32 1D cases (borders, zeros, incompressible bits,
+   constants, one block, special floats), the 2D/3D kernels on small grids
+   (aligned and unaligned rows, borders on one or two axes, constants, random
+   bits, special floats), and one all-border grid through the glue; each
+   decode reads the plain stream with -1 written past its length;
+4. the paths through the public entry points: ``compress_device`` then
+   ``decompress_device(stream[:length], shape)``, fp32 1D at 2^24 elements
+   (bench.py's headline data) and 2^28 + 17, then fp32 2D/3D at bench.py's
+   CESM 1800x3600, 256^3 and 512x512x2048 (2 GiB) cells: streams equal to the
+   plain version's on the card, bit-exact round trips, and the kernels' launch
+   counts over each path, counted from 0 just before it. The tests hold the
+   plain version's stream against the reference package byte for byte; this
+   script imports nothing of that package;
 5. timing with CUDA events: median of 10 runs after a warm-up, compress and
-   decompress against the plain version and a device-to-device ``copy_``;
-   then each kernel's mean device time per call from ``torch.profiler``.
+   decompress against the plain version and a device-to-device ``copy_``,
+   per size and cell; then each kernel's mean device time per call from
+   ``torch.profiler``.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
@@ -27,6 +34,7 @@ before printing any result.
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -56,6 +64,34 @@ def bench_data(n: int) -> np.ndarray:
     rng = np.random.default_rng(SEED)
     return (np.sin(np.arange(n, dtype=np.float32) * 1e-4)
             + 0.001 * rng.standard_normal(n).astype(np.float32))
+
+
+def cesm_data() -> np.ndarray:
+    """bench.py's CESM cell: sin(y) cos(x) + 1e-3 * N(0, 1) on 1800x3600, seed 0."""
+    rng = np.random.default_rng(SEED)
+    y = np.linspace(0, 11.0, 1800, dtype=np.float64)[:, None]
+    x = np.linspace(0, 7.0, 3600, dtype=np.float64)[None, :]
+    return (np.sin(y) * np.cos(x) + 0.001 * rng.standard_normal((1800, 3600))).astype(np.float32)
+
+
+def cube_data() -> np.ndarray:
+    """bench.py's 256^3 cell: sin(z) cos(y) sin(2x) + 1e-3 * N(0, 1), seed 0."""
+    rng = np.random.default_rng(SEED)
+    z = np.linspace(0, 5.0, 256, dtype=np.float64)
+    return (np.sin(z[:, None, None]) * np.cos(z[None, :, None]) * np.sin(z[None, None, :] * 2)
+            + 0.001 * rng.standard_normal((256, 256, 256))).astype(np.float32)
+
+
+def big_cube(dev):
+    """bench.py's 2 GiB cell, 512x512x2048: sin(z) cos(y) sin(x) + 1e-3 * N(0, 1),
+    made on the card with a torch.Generator seeded with SEED."""
+    import torch
+
+    z = torch.linspace(0, 9.0, 512, device=dev)
+    x = torch.linspace(0, 4.0, 2048, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    d = torch.sin(z[:, None, None]) * torch.cos(z[None, :, None]) * torch.sin(x[None, None, :])
+    return d + 1e-3 * torch.randn((512, 512, 2048), device=dev, generator=gen)
 
 
 def kernel_breakdown(fn) -> str:
@@ -99,6 +135,39 @@ def kernel_cases() -> dict[str, np.ndarray]:
     }
 
 
+def nd_kernel_cases() -> dict[str, np.ndarray]:
+    """Small 2D/3D grids for the nd kernels: tests/test_pallas.py's shapes
+    (rows 16-byte aligned or not, borders on none, one or two axes),
+    constants, random bits, special floats, and one all-border grid."""
+    rng = np.random.default_rng(SEED)
+
+    def normal(shape):
+        d = rng.standard_normal(shape).astype(np.float32)
+        d.reshape(-1)[:200] = 0
+        d.reshape(-1)[300:340] = d.reshape(-1)[299]
+        return d
+
+    special = normal((32, 32, 48))
+    flat = special.reshape(-1)
+    flat[[5, 4100, 9000]] = np.nan
+    flat[[6, 4101]] = np.inf
+    flat[[7, 20000]] = -np.inf
+    flat[[8, 4102, 32790]] = -0.0
+    flat[1000:1064] = np.float32(1e-42) * np.arange(64, dtype=np.float32)  # denormals
+    return {
+        "2d (128,192)": normal((128, 192)),
+        "2d (128,512)": normal((128, 512)),
+        "2d border (130,513)": normal((130, 513)),
+        "3d border (32,32,33)": normal((32, 32, 33)),
+        "3d (16,32,128)": normal((16, 32, 128)),
+        "3d border (17,32,129)": normal((17, 32, 129)),
+        "3d constant (32,32,32)": np.full((32, 32, 32), 3.25, np.float32),
+        "2d random bits (128,256)": rng.integers(0, 2**32, (128, 256), dtype=np.uint64).astype(np.uint32),
+        "3d nan/inf/-0/denormal (32,32,48)": special,
+        "2d all border (63,100)": normal((63, 100)),
+    }
+
+
 def main() -> int:
     import torch
 
@@ -127,7 +196,7 @@ def main() -> int:
     _build.load()
     print(f"[2 build] {lib_path.name} in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    err = {"encode": 0, "decode": 0}
+    err = {"encode": 0, "decode": 0, "encode_nd": 0, "decode_nd": 0}
 
     def cuda_words(data: np.ndarray):
         return torch.from_numpy(np.ascontiguousarray(data).view(np.int32)).to(dev)
@@ -154,23 +223,75 @@ def main() -> int:
         garbage[L:] = -1
         out = codec_cuda._decode_blocks_fp32(garbage, n)
         e = max(max_abs_err(out[: num_hc * HC], codec_torch.decode_blocks_ref(garbage, num_hc).reshape(-1)),
-                max_abs_err(out, codec_torch.decode(ref_stream, n)))
+                max_abs_err(out, codec_torch.decode(ref_stream, (n,))))
         err["decode"] = max(err["decode"], e)
         if e or not torch.equal(out, w):
             fail(f"decode kernel != plain or != input on {label!r} (max_abs_err {e})")
         print(f"[3 kernels] {label}: n={n} blocks={num_hc} length={L} encode == plain, "
               f"decode == plain == input", flush=True)
 
-    # ---- 4. the slice, through the public entry points
+    for label, data in nd_kernel_cases().items():
+        w = cuda_words(data)
+        shape, dims = tuple(w.shape), w.dim()
+        num_hc = math.prod(e // {2: 64, 3: 16}[dims] for e in shape)
+        ref_stream, ref_length = codec_torch.encode(w)
+        L = int(ref_length)
+        garbage = ref_stream.clone()
+        garbage[L:] = -1
+        if num_hc == 0:  # all border: the glue copies, no kernel runs
+            stream, length = nt.compress_device(w)
+            out = nt.decompress_device(garbage, shape, torch.int32)
+            if int(length) != L or max_abs_err(stream, ref_stream) or not torch.equal(out, w):
+                fail(f"all-border glue != plain on {label!r}")
+            print(f"[3 kernels] {label}: all border, glue == plain == input", flush=True)
+            continue
+        stream, length = codec_cuda._encode_interior_fp32(w)
+        header, body, _ = codec_torch.encode_blocks_ref(codec_torch.gather_blocks(w, shape), dims)
+        body_total = int(header[-1])
+        e = max(max_abs_err(stream[:num_hc], header),
+                max_abs_err(stream[num_hc: num_hc + body_total], body),
+                max_abs_err(stream[:L], ref_stream[:L]) if int(length) == L else -1)
+        err["encode_nd"] = max(err["encode_nd"], e)
+        if e:
+            fail(f"nd encode kernel != plain on {label!r} (max_abs_err {e}, length {int(length)} vs {L})")
+        out = codec_cuda._decode_interior_fp32(garbage, shape)
+        blocks = codec_torch.decode_blocks_ref(garbage, num_hc, dims)
+        e = max(max_abs_err(codec_torch.gather_blocks(out, shape), blocks),
+                max_abs_err(out, codec_torch.decode(ref_stream, shape)))
+        err["decode_nd"] = max(err["decode_nd"], e)
+        if e or not torch.equal(out, w):
+            fail(f"nd decode kernel != plain or != input on {label!r} (max_abs_err {e})")
+        print(f"[3 kernels] {label}: blocks={num_hc} length={L} nd encode == plain, "
+              f"nd decode == plain == input", flush=True)
+
+    def check_cell(x, s, L, y, what):
+        """The kernels' stream and output of one cell against the plain versions on the card."""
+        shape = tuple(x.shape)
+        w = x.view(torch.int32)
+        if not torch.equal(y.view(torch.int32), w):
+            fail(f"{what}: round trip is not bit-exact")
+        ps, pl = codec_torch.encode(w)
+        e = max_abs_err(s[:L], ps[: int(pl)]) if L == int(pl) else -1
+        enc, dec = ("encode", "decode") if len(shape) == 1 else ("encode_nd", "decode_nd")
+        err[enc] = max(err[enc], e)
+        if e:
+            fail(f"{what}: kernel stream differs from the plain version's on the card")
+        del ps
+        e = max_abs_err(y.view(torch.int32), codec_torch.decode(s[:L], shape))
+        err[dec] = max(err[dec], e)
+        if e:
+            fail(f"{what}: kernel decode differs from the plain version's on the card")
+
+    # ---- 4. the fp32 1D path, through the public entry points
     n24, n28 = 2**24, 2**28 + 17
-    data24 = bench_data(n24)
-    x24 = torch.from_numpy(data24).to(dev)
+    x24 = torch.from_numpy(bench_data(n24)).to(dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     x28 = (torch.sin(torch.arange(n28, device=dev, dtype=torch.float32) * 1e-4)
            + 1e-3 * torch.randn(n28, device=dev, generator=gen))
     torch.cuda.synchronize()
 
-    codec_cuda.LAUNCHES.update(encode=0, decode=0)
+    for k in codec_cuda.LAUNCHES:
+        codec_cuda.LAUNCHES[k] = 0
     s24, l24 = nt.compress_device(x24)
     L24 = int(l24)
     y24 = nt.decompress_device(s24[:L24], (n24,))
@@ -180,29 +301,14 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(codec_cuda.LAUNCHES)
     if launches["encode"] == 0 or launches["decode"] == 0:
-        fail(f"the main path did not launch every kernel: {launches}")
+        fail(f"the 1D path did not launch every 1D kernel: {launches}")
 
-    if not torch.equal(y24.view(torch.int32), x24.view(torch.int32)):
-        fail("2^24 round trip is not bit-exact")
-    if not torch.equal(y28.view(torch.int32), x28.view(torch.int32)):
-        fail("2^28+17 round trip is not bit-exact")
-    w24, w28 = x24.view(torch.int32), x28.view(torch.int32)
-    for w, s, L, y in ((w24, s24, L24, y24), (w28, s28, L28, y28)):
-        ps, pl = codec_torch.encode(w)
-        e = max_abs_err(s[:L], ps[: int(pl)]) if L == int(pl) else -1
-        err["encode"] = max(err["encode"], e)
-        if e:
-            fail(f"n={w.numel()}: kernel stream differs from the plain version's on the card")
-        del ps
-        e = max_abs_err(y.view(torch.int32), codec_torch.decode(s[:L], w.numel()))
-        err["decode"] = max(err["decode"], e)
-        if e:
-            fail(f"n={w.numel()}: kernel decode differs from the plain version's on the card")
-    ratio24, ratio28 = L24 * 4 / data24.nbytes, L28 / n28
-    print(f"[4 slice] 2^24: stream == plain ({L24} words, ratio {ratio24:.4f}), round trip "
-          f"bit-exact; 2^28+17: stream == plain ({L28} words, ratio {ratio28:.4f}), round trip "
+    check_cell(x24, s24, L24, y24, "2^24")
+    check_cell(x28, s28, L28, y28, "2^28+17")
+    print(f"[4 path 1D] 2^24: stream == plain ({L24} words, ratio {L24 / n24:.4f}), round trip "
+          f"bit-exact; 2^28+17: stream == plain ({L28} words, ratio {L28 / n28:.4f}), round trip "
           f"bit-exact; launches {launches}", flush=True)
-    del s28, y28
+    del s24, y24, s28, y28
     torch.cuda.empty_cache()
 
     # ---- 5. timing with CUDA events
@@ -220,8 +326,9 @@ def main() -> int:
             times.append(a.elapsed_time(b))
         return statistics.median(times)
 
-    kernel_ms = {}
-    for n, x in ((n24, x24), (n28, x28)):
+    def time_cell(x, label):
+        """Phase 5 for one size or cell; returns the timed rows."""
+        shape = tuple(x.shape)
         w = x.view(torch.int32)
         s, length = nt.compress_device(x)
         sl = s[: int(length)]
@@ -230,32 +337,75 @@ def main() -> int:
         rows = {
             "compress": median_ms(lambda: nt.compress_device(x)),
             "compress plain": median_ms(lambda: codec_torch.encode(w)),
-            "decompress": median_ms(lambda: nt.decompress_device(sl, (n,))),
-            "decompress plain": median_ms(lambda: codec_torch.decode(sl, n)),
+            "decompress": median_ms(lambda: nt.decompress_device(sl, shape)),
+            "decompress plain": median_ms(lambda: codec_torch.decode(sl, shape)),
             "copy_": median_ms(lambda: dst.copy_(x)),
         }
-        if n == n24:
-            kernel_ms = {
-                "encode": (median_ms(lambda: codec_cuda._encode_blocks_fp32(w)), rows["compress plain"]),
-                "decode": (median_ms(lambda: codec_cuda._decode_blocks_fp32(sl, n)), rows["decompress plain"]),
-            }
         for what, ms in rows.items():
-            print(f"[5 time] n={n} ({gb * 1e3 / 1.048576:.1f} MiB) {what}: {ms:.4f} ms = "
+            print(f"[5 time] {label} ({gb * 1e3 / 1.048576:.1f} MiB) {what}: {ms:.4f} ms = "
                   f"{gb / (ms * 1e-3):.1f} GB/s (uncompressed bytes / time, median of {REPS}) "
                   f"on {card}", flush=True)
         for what, fn in (("compress", lambda: nt.compress_device(x)),
-                         ("decompress", lambda: nt.decompress_device(sl, (n,)))):
-            print(f"[5 profile] n={n} {what}, mean device us per call by kernel over {REPS} calls: "
+                         ("decompress", lambda: nt.decompress_device(sl, shape))):
+            print(f"[5 profile] {label} {what}, mean device us per call by kernel over {REPS} calls: "
                   f"{kernel_breakdown(fn)} on {card}", flush=True)
-        del s, sl, dst
+        return rows, sl
+
+    kernel_ms = {}
+    rows, sl = time_cell(x24, f"n={n24}")
+    w24 = x24.view(torch.int32)
+    kernel_ms["encode"] = (median_ms(lambda: codec_cuda._encode_blocks_fp32(w24)), rows["compress plain"])
+    kernel_ms["decode"] = (median_ms(lambda: codec_cuda._decode_blocks_fp32(sl, n24)),
+                           rows["decompress plain"])
+    time_cell(x28, f"n={n28}")
+    del x24, x28, sl
+    torch.cuda.empty_cache()
+
+    # ---- 4 and 5 for the fp32 2D/3D path, one cell at a time
+    cells = (("CESM 1800x3600", lambda: torch.from_numpy(cesm_data()).to(dev)),
+             ("256^3", lambda: torch.from_numpy(cube_data()).to(dev)),
+             ("512x512x2048", lambda: big_cube(dev)))
+    launches_nd = {"encode_nd": 0, "decode_nd": 0}
+    for label, make in cells:
+        x = make()
+        shape = tuple(x.shape)
+        torch.cuda.synchronize()
+        for k in codec_cuda.LAUNCHES:
+            codec_cuda.LAUNCHES[k] = 0
+        s, length = nt.compress_device(x)
+        L = int(length)
+        y = nt.decompress_device(s[:L], shape)
+        torch.cuda.synchronize()
+        counts = dict(codec_cuda.LAUNCHES)
+        if counts["encode_nd"] == 0 or counts["decode_nd"] == 0:
+            fail(f"{label}: the 2D/3D path did not launch every nd kernel: {counts}")
+        for k in launches_nd:
+            launches_nd[k] += counts[k]
+        check_cell(x, s, L, y, label)
+        print(f"[4 path nd] {label}: stream == plain ({L} words, ratio {L / x.numel():.4f}), "
+              f"round trip bit-exact; launches {counts}", flush=True)
+        del s, y
+        rows, sl = time_cell(x, label)
+        if label == "256^3":
+            w = x.view(torch.int32)
+            kernel_ms["encode_nd"] = (median_ms(lambda: codec_cuda._encode_interior_fp32(w)),
+                                      rows["compress plain"])
+            kernel_ms["decode_nd"] = (median_ms(lambda: codec_cuda._decode_interior_fp32(sl, shape)),
+                                      rows["decompress plain"])
+        del x, sl
         torch.cuda.empty_cache()
+    launches.update(launches_nd)
 
     if "jax" in sys.modules:
         fail("JAX was imported")
     sources = {"encode": ("encode_fp32", "ndzip_tpu_torch/csrc/encode_fp32.cu",
                           "ndzip_tpu/codec_pallas.py:778"),
                "decode": ("decode_fp32", "ndzip_tpu_torch/csrc/decode_fp32.cu",
-                          "ndzip_tpu/codec_pallas.py:1248")}
+                          "ndzip_tpu/codec_pallas.py:1248"),
+               "encode_nd": ("encode_fp32_nd", "ndzip_tpu_torch/csrc/encode_fp32_nd.cu",
+                             "ndzip_tpu/codec_pallas.py:944"),
+               "decode_nd": ("decode_fp32_nd", "ndzip_tpu_torch/csrc/decode_fp32_nd.cu",
+                             "ndzip_tpu/codec_pallas.py:1386")}
     kernels = [{"name": kname, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[k], "max_abs_err": err[k],
                 "ms": kernel_ms[k][0], "plain_ms": kernel_ms[k][1]}

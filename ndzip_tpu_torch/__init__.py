@@ -2,13 +2,13 @@
 kernels for NVIDIA Hopper. The port of ``ndzip_tpu``; streams are byte for
 byte the ndzip format, so either package decodes the other's.
 
-This slice covers fp32 1D. A tensor's device picks the path:
+The port covers fp32 grids of 1-3 dims. A tensor's device picks the path:
 
 * a CUDA tensor goes to the kernels of ``codec_cuda`` (built from
   ``csrc/`` with nvcc on first use; a failed build or launch raises);
 * a CPU tensor goes to the plain PyTorch versions of ``codec_torch``.
 
-Other profiles (fp64, 2D, 3D) raise NotImplementedError.
+fp64 raises NotImplementedError (ROADMAP Queue 1 item 6).
 """
 
 from __future__ import annotations
@@ -22,7 +22,7 @@ __version__ = "0.1.0"
 
 
 def compress_device(x: torch.Tensor):
-    """Compress a float32 (or int32 word) tensor of shape (n,) where it lies.
+    """Compress a float32 (or int32 word) tensor of 1-3 dims where it lies.
     Returns ``(stream, length)``: an int32 stream of the compressed bound and
     the int32 length as a scalar tensor on the same device."""
     if x.is_cuda:
@@ -42,11 +42,11 @@ def decompress_device(stream: torch.Tensor, shape, dtype=torch.float32) -> torch
     if stream.device.type != "cpu" or stream.dtype != torch.int32:
         raise ValueError(f"expected an int32 stream on the CPU or a CUDA device, got "
                          f"{stream.dtype} on {stream.device}")
-    return codec_torch.decode(stream, int(shape[0])).view(out_dtype)
+    return codec_torch.decode(stream, shape).view(out_dtype)
 
 
 def compress(data: np.ndarray, device="cuda") -> tuple[np.ndarray, int]:
-    """Compress a float32 numpy array of shape (n,) on ``device``; returns
+    """Compress a float32 numpy array of 1-3 dims on ``device``; returns
     (uint32 stream, length in words) as ``ndzip_tpu.compress`` does."""
     stream, length = compress_device(interop.words_from_numpy(data, device))
     length = int(length)

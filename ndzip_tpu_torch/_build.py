@@ -1,10 +1,11 @@
 """Build the CUDA kernels from ``csrc/`` with nvcc and load them with ctypes.
 
-The sources have a plain C interface, so nvcc builds them in seconds into
-one shared library under ``build/``, named by a hash of the sources and the
-flags: a changed source builds anew, an unchanged one loads what is there.
-There is no fallback. If nvcc is missing or fails, ``load`` raises with its
-output, and nothing is built when this module is imported.
+The sources have a plain C interface, so nvcc builds them in seconds: one
+nvcc for each ``.cu``, all started together, then one link into a shared
+library under ``build/``, named by a hash of the sources and the flags: a
+changed source builds anew, an unchanged one loads what is there. There is
+no fallback. If nvcc is missing or fails, ``load`` raises with its output,
+and nothing is built when this module is imported.
 """
 
 from __future__ import annotations
@@ -21,7 +22,7 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD = Path(__file__).parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
@@ -31,6 +32,11 @@ SIGNATURES = {
     "ndzip_encode_fp32": [_P, _I64, _I64, _P, _P, _P, _P],
     # stream, size, num_hc, border, out, cuda stream
     "ndzip_decode_fp32": [_P, _I64, _I64, _I64, _P, _P],
+    # words, dims, e0, e1, e2 (the shape padded in front with 1s), stream, lengths, length,
+    # cuda stream
+    "ndzip_encode_fp32_nd": [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P],
+    # stream, size, dims, e0, e1, e2, out, cuda stream
+    "ndzip_decode_fp32_nd": [_P, _I64, _I64, _I64, _I64, _I64, _P, _P],
 }
 
 
@@ -63,17 +69,27 @@ def build() -> Path:
         raise RuntimeError("nvcc not found (looked in $CUDA_HOME, $CUDA_PATH, /usr/local/cuda "
                            "and PATH): the CUDA kernels of ndzip_tpu_torch cannot be built")
     BUILD.mkdir(exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *(str(s) for s in CSRC.glob("*.cu"))]
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
-        os.replace(tmp, lib)  # atomic: another process never loads half a library
-    finally:
-        if os.path.exists(tmp):
-            os.remove(tmp)
+    with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
+        objs, procs = [], []
+        for src in sorted(CSRC.glob("*.cu")):  # one nvcc per source, all started together
+            objs.append(os.path.join(tmp, f"{src.stem}.o"))
+            cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)]
+            procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                                text=True)))
+        failed = []
+        for cmd, proc in procs:
+            _, err = proc.communicate()
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
+        so = os.path.join(tmp, lib.name)
+        if not failed:
+            cmd = [nvcc, *NVCC_FLAGS, "-shared", "-o", so, *objs]
+            proc = subprocess.run(cmd, capture_output=True, text=True)
+            if proc.returncode != 0:
+                failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        os.replace(so, lib)  # atomic: another process never loads half a library
     return lib
 
 

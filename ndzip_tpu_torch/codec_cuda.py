@@ -1,11 +1,17 @@
-"""The fp32 1D device codec on CUDA: hand-written kernels and their glue.
+"""The fp32 device codec on CUDA, for grids of 1-3 dims: hand-written
+kernels and their glue.
 
-The counterpart of ``ndzip_tpu/codec_pallas.py`` for fp32 1D:
+The counterpart of ``ndzip_tpu/codec_pallas.py`` for fp32:
 
-* ``_encode_blocks_fp32`` launches the encoder of ``csrc/encode_fp32.cu``
+* ``_encode_blocks_fp32`` launches the 1D encoder of ``csrc/encode_fp32.cu``
   (the TPU kernel ``_encode_kernel_fp32``, flat mode);
-* ``_decode_blocks_fp32`` launches the decoder of ``csrc/decode_fp32.cu``
+* ``_decode_blocks_fp32`` launches the 1D decoder of ``csrc/decode_fp32.cu``
   (the TPU kernel ``_decode_kernel_fp32``, flat mode);
+* ``_encode_interior_fp32`` launches the 2D/3D encoder of
+  ``csrc/encode_fp32_nd.cu`` (``_encode_kernel_fp32`` in tile modes, which
+  ``codec_pallas._encode_interior_fp32`` launches);
+* ``_decode_interior_fp32`` launches the 2D/3D decoder of
+  ``csrc/decode_fp32_nd.cu`` (``_decode_kernel_fp32`` in tile modes);
 * ``_encode_fp32_device``/``_decode_fp32_device`` are the glue, and
   ``compress_device``/``decompress_device`` the API.
 
@@ -17,6 +23,8 @@ kernels.
 
 from __future__ import annotations
 
+import math
+
 import torch
 
 from ndzip_tpu import format as fmt
@@ -25,16 +33,17 @@ from . import _build
 from .codec_torch import HC, as_words, output_dtype
 
 #: launches of each kernel wrapper since the count was last set to 0
-LAUNCHES = {"encode": 0, "decode": 0}
+LAUNCHES = {"encode": 0, "decode": 0, "encode_nd": 0, "decode_nd": 0}
 
 
-def _check_cuda_words(name: str, t: torch.Tensor):
+def _check_cuda_words(name: str, t: torch.Tensor, dims=(1,)):
     if not t.is_cuda:
         raise ValueError(f"{name} must lie on a CUDA device, got {t.device}")
     if t.dtype != torch.int32:
         raise TypeError(f"{name} must be int32 words, got {t.dtype}")
-    if t.dim() != 1 or not t.is_contiguous():
-        raise ValueError(f"{name} must be contiguous and 1D, got shape {tuple(t.shape)}")
+    if t.dim() not in dims or not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous with {' or '.join(map(str, dims))} dims, "
+                         f"got shape {tuple(t.shape)}")
 
 
 def _launch(fn, t: torch.Tensor, *args):
@@ -44,6 +53,11 @@ def _launch(fn, t: torch.Tensor, *args):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{fn.__name__} failed with CUDA error {err}")
+
+
+def _extents(shape) -> list[int]:
+    """A 2D/3D shape padded in front with 1s to three axes, as the nd kernels take it."""
+    return [1] * (3 - len(shape)) + list(shape)
 
 
 def _encode_blocks_fp32(words: torch.Tensor):
@@ -86,47 +100,94 @@ def _decode_blocks_fp32(stream: torch.Tensor, n: int) -> torch.Tensor:
     return out
 
 
+def _encode_interior_fp32(words: torch.Tensor):
+    """Encode a 2D/3D grid of int32 words with at least one whole block on
+    the card: blocks read straight from the grid, border copied after them.
+    Returns ``(stream, length)`` as ``_encode_blocks_fp32``. No host sync."""
+    _check_cuda_words("words", words, dims=(2, 3))
+    shape = tuple(words.shape)
+    num_hc = fmt.num_hypercubes(shape)
+    if num_hc == 0:
+        raise ValueError(f"shape {shape} has no whole block: it is all border")
+    lib = _build.load()
+    stream = torch.empty(fmt.compressed_bound_u32(shape, 32), dtype=torch.int32, device=words.device)
+    lengths = torch.empty(num_hc, dtype=torch.int32, device=words.device)
+    length = torch.empty((), dtype=torch.int32, device=words.device)
+    _launch(lib.ndzip_encode_fp32_nd, words, words.data_ptr(), len(shape), *_extents(shape),
+            stream.data_ptr(), lengths.data_ptr(), length.data_ptr())
+    LAUNCHES["encode_nd"] += 1
+    return stream, length
+
+
+def _decode_interior_fp32(stream: torch.Tensor, shape) -> torch.Tensor:
+    """Decode an int32 stream into int32 words of a 2D/3D ``shape`` with at
+    least one whole block on the card: blocks stored straight into the grid,
+    border placed from the stream. Reads only the words each block owns, as
+    ``_decode_blocks_fp32``."""
+    _check_cuda_words("stream", stream)
+    shape = tuple(shape)
+    if len(shape) not in (2, 3):
+        raise ValueError(f"the nd decode kernel takes 2D/3D shapes, got {shape}")
+    num_hc = fmt.num_hypercubes(shape)
+    if num_hc == 0:
+        raise ValueError(f"shape {shape} has no whole block: it is all border")
+    if stream.numel() < num_hc:
+        raise ValueError(f"stream of {stream.numel()} words cannot hold a {num_hc}-entry header")
+    lib = _build.load()
+    out = torch.empty(shape, dtype=torch.int32, device=stream.device)
+    _launch(lib.ndzip_decode_fp32_nd, stream, stream.data_ptr(), stream.numel(), len(shape),
+            *_extents(shape), out.data_ptr())
+    LAUNCHES["decode_nd"] += 1
+    return out
+
+
 def _encode_fp32_device(words: torch.Tensor):
-    """(n,) int32 CUDA words -> (stream, length) as in ``compress_device``."""
-    n = words.numel()
-    if n < HC:  # all border: the stream is the words themselves
-        stream = torch.zeros(fmt.compressed_bound_u32((n,), 32), dtype=torch.int32, device=words.device)
-        stream[:n] = words
+    """int32 CUDA words of 1-3 dims -> (stream, length) as in ``compress_device``."""
+    shape = tuple(words.shape)
+    if fmt.num_hypercubes(shape) == 0:  # all border: the stream is the words themselves
+        n = words.numel()
+        stream = torch.zeros(fmt.compressed_bound_u32(shape, 32), dtype=torch.int32, device=words.device)
+        stream[:n] = words.reshape(-1)
         return stream, torch.full((), n, dtype=torch.int32, device=words.device)
+    if len(shape) > 1:
+        return _encode_interior_fp32(words)
     if words.data_ptr() % 16:
         words = words.clone()
     return _encode_blocks_fp32(words)
 
 
-def _decode_fp32_device(stream: torch.Tensor, n: int) -> torch.Tensor:
-    """int32 CUDA stream -> (n,) int32 words."""
-    if n < HC:
+def _decode_fp32_device(stream: torch.Tensor, shape) -> torch.Tensor:
+    """int32 CUDA stream -> int32 words of ``shape`` (1-3 dims)."""
+    shape = tuple(shape)
+    if fmt.num_hypercubes(shape) == 0:
+        n = math.prod(shape)
         if stream.numel() < n:
             raise ValueError(f"stream of {stream.numel()} words is shorter than its {n} border words")
-        return stream[:n].clone()
-    return _decode_blocks_fp32(stream, n)
+        return stream[:n].clone().reshape(shape)
+    if len(shape) > 1:
+        return _decode_interior_fp32(stream, shape)
+    return _decode_blocks_fp32(stream, shape[0])
 
 
 # ------------------------------------------------------------ device API
 
 
 def compress_device(x: torch.Tensor):
-    """Compress a float32 (or int32 word) CUDA tensor of shape (n,) on the card.
+    """Compress a float32 (or int32 word) CUDA tensor of 1-3 dims on the card.
 
     Returns ``(stream, length)``: ``stream`` an int32 tensor of
-    ``format.compressed_bound_u32((n,), 32)`` words, ``length`` an int32
+    ``format.compressed_bound_u32(x.shape, 32)`` words, ``length`` an int32
     device scalar, so the call makes no host sync. ``stream[:length]`` is
     byte for byte the stream of ``ndzip_tpu.golden.compress``."""
     words = as_words(x)
-    _check_cuda_words("x", words)
+    _check_cuda_words("x", words, dims=(1, 2, 3))
     return _encode_fp32_device(words)
 
 
 def decompress_device(stream: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
     """Decompress an int32 CUDA stream (``stream[:length]`` as it is, or the
-    whole buffer) into a tensor of ``shape``: float32 for float32, int32 for
-    32-bit word types."""
+    whole buffer) into a tensor of ``shape`` (1-3 dims): float32 for float32,
+    int32 for 32-bit word types."""
     out_dtype = output_dtype(shape, dtype)
     _check_cuda_words("stream", stream)
-    return _decode_fp32_device(stream, int(shape[0])).view(out_dtype)
-
+    return _decode_fp32_device(stream, shape).view(out_dtype)

@@ -8,13 +8,13 @@
 // with one-hot matmuls, so its stream must be zero-padded past the end. Here
 // one CTA decodes one block and reads only the words the block owns: its
 // start num_hc + (b ? header[b-1] : 0), its 128 heads, and for each chunk the
-// nonzero words its head marks. Each warp expands a chunk (rank of a word =
-// popcount of the present bits below it, chunk start = exclusive scan of the
-// heads' popcounts), transposes it, and the CTA runs the inverse transform
-// (complement, wrapping prefix sum over the 4096 words, rotate right) before
-// storing the block at out[b*4096 ..), the 1D output order itself. One more
-// CTA copies the border tail from num_hc + header[num_hc-1]. Every read is
-// clamped to the stream's size, so a damaged stream cannot fault.
+// nonzero words its head marks. Each warp expands a chunk and transposes it
+// (common.cuh's expand_chunks, shared with the 2D/3D decoder), and the CTA
+// runs the inverse transform (complement, wrapping prefix sum over the 4096
+// words, rotate right) before storing the block at out[b*4096 ..), the 1D
+// output order itself. One more CTA copies the border tail from
+// num_hc + header[num_hc-1]. Every read is clamped to the stream's size, so a
+// damaged stream cannot fault.
 //
 // Bound: bytes. Each element reads 4 B x ratio of stream and writes 4 B of
 // output; the arithmetic per word is a handful of integer ops and five warp
@@ -24,86 +24,59 @@
 
 namespace ndzip {
 
-__device__ __forceinline__ uint32_t load(const uint32_t* stream, uint64_t size, uint64_t i) {
-    return i < size ? stream[i] : 0u;
-}
-
 __global__ void __launch_bounds__(kThreads)
-decode_blocks(const uint32_t* __restrict__ stream, uint64_t size, uint64_t num_hc, uint64_t border,
+decode_blocks(const uint32_t* __restrict__ stream, uint64_t size, uint64_t num_hc, Border border,
               uint32_t* __restrict__ out) {
     const uint64_t b = blockIdx.x;
     const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
 
-    if (b == num_hc) {  // the border CTA
-        const uint64_t from = num_hc + load(stream, size, num_hc - 1);
-        for (uint64_t i = t; i < border; i += kThreads)
-            out[num_hc * kHcSize + i] = load(stream, size, from + i);
+    if (b >= num_hc) {  // the border CTA
+        decode_border(stream, size, num_hc, border, b - num_hc, out);
         return;
     }
 
-    __shared__ uint32_t x[kPadded];
-    __shared__ uint32_t heads[kChunks];
-    __shared__ uint32_t offsets[kChunks];  // per-chunk counts, then their exclusive scan
-    __shared__ uint32_t warp_sum[kWarps];
-    const uint64_t start = num_hc + (b ? load(stream, size, b - 1) : 0u);
-    if (t < kChunks) {
-        const uint32_t h = load(stream, size, start + t);
-        heads[t] = h;
-        offsets[t] = __popc(h);
-    }
-    __syncthreads();
-    if (warp == 0) chunk_exclusive_scan(offsets, lane);
-    __syncthreads();
-
-    // expand each chunk's nonzero words and transpose back (an involution)
-    const uint64_t body = start + kChunks;
-#pragma unroll 4
-    for (int k = 0; k < kChunksPerWarp; ++k) {
-        const int c = warp * kChunksPerWarp + k;
-        const uint32_t present = __brev(heads[c]);  // bit i <=> word i is in the stream
-        const uint32_t v = (present >> lane) & 1u
-            ? load(stream, size, body + offsets[c] + __popc(present & lanemask_lt(lane)))
-            : 0u;
-        x[pad(32 * c + lane)] = warp_transpose_bits(v, lane);
-    }
-    __syncthreads();
+    __shared__ DecodeShared s;
+    expand_chunks(s, stream, size, num_hc, b);
 
     // inverse transform: complement, wrapping inclusive prefix sum, rotate right
     uint32_t seg[kWordsPerThread];
     uint32_t sum = 0;
 #pragma unroll
     for (int k = 0; k < kWordsPerThread; ++k) {
-        sum += complement_negative(x[pad(kWordsPerThread * t + k)]);
+        sum += complement_negative(s.x[pad(kWordsPerThread * t + k)]);
         seg[k] = sum;
     }
     const uint32_t incl = warp_inclusive_scan(sum, lane);
-    if (lane == 31) warp_sum[warp] = incl;
+    if (lane == 31) s.partial[warp] = incl;
     __syncthreads();
     uint32_t carry = incl - sum;
-    for (int w = 0; w < warp; ++w) carry += warp_sum[w];
+    for (int w = 0; w < warp; ++w) carry += s.partial[w];
 #pragma unroll
-    for (int k = 0; k < kWordsPerThread; ++k) x[pad(kWordsPerThread * t + k)] = rotr1(seg[k] + carry);
+    for (int k = 0; k < kWordsPerThread; ++k) s.x[pad(kWordsPerThread * t + k)] = rotr1(seg[k] + carry);
     __syncthreads();
 
     uint4* dst = reinterpret_cast<uint4*>(out + b * kHcSize);
 #pragma unroll
     for (int k = 0; k < kHcSize / 4 / kThreads; ++k) {
         const int q = t + k * kThreads;
-        dst[q] = make_uint4(x[pad(4 * q)], x[pad(4 * q + 1)], x[pad(4 * q + 2)], x[pad(4 * q + 3)]);
+        dst[q] = make_uint4(s.x[pad(4 * q)], s.x[pad(4 * q + 1)], s.x[pad(4 * q + 2)], s.x[pad(4 * q + 3)]);
     }
 }
 
 }  // namespace ndzip
 
 // stream: `size` words, header from word 0. out: num_hc * 4096 + border
-// words, 16-byte aligned. num_hc >= 1. Launches on the current device.
-// Returns the CUDA error of the launch, 0 if none.
+// words, 16-byte aligned. num_hc >= 1, border < 4096. Launches on the current
+// device. Returns the CUDA error of the launch, 0 if none.
 extern "C" int ndzip_decode_fp32(const void* stream, int64_t size, int64_t num_hc, int64_t border,
                                  void* out, void* cuda_stream) {
     using namespace ndzip;
-    const unsigned grid = static_cast<unsigned>(num_hc + (border ? 1 : 0));
+    const auto n = static_cast<uint64_t>(num_hc), covered = n * kHcSize;
+    const auto count = static_cast<uint64_t>(border);
+    const Border tail{1, covered + count, 1, 1, covered, count};  // three-axis view (1, 1, n)
+    const auto grid = static_cast<unsigned>(num_hc + border_ctas(count));
     decode_blocks<<<grid, kThreads, 0, static_cast<cudaStream_t>(cuda_stream)>>>(
-        static_cast<const uint32_t*>(stream), static_cast<uint64_t>(size),
-        static_cast<uint64_t>(num_hc), static_cast<uint64_t>(border), static_cast<uint32_t*>(out));
+        static_cast<const uint32_t*>(stream), static_cast<uint64_t>(size), n, tail,
+        static_cast<uint32_t*>(out));
     return cudaGetLastError();
 }

@@ -8,15 +8,19 @@
 // offset from one grid step to the next. CTAs run in no fixed order, so the
 // encode here is three launches on one stream, as in the reference's CUDA
 // codec (lengths, device-wide scan, placement):
-//   1. encode_blocks<false>: one CTA per 4096-word block transforms,
-//      transposes and counts, and writes the block's length
-//      (128 heads + its nonzero transposed words);
-//   2. scan_lengths: one CTA scans the lengths into the header of
-//      offset-after entries, stream[0 .. num_hc), then copies the border
-//      tail words[num_hc*4096 ..) after the last body word and writes the
-//      stream length, so the host never waits;
+//   1. encode_blocks<false>: one CTA per 4096-word block transforms and
+//      counts, and writes the block's length (128 heads + its nonzero
+//      transposed words, counted without the transpose: common.cuh's
+//      encode_chunks);
+//   2. scan_lengths (common.cuh): one CTA scans the lengths into the header
+//      of offset-after entries, stream[0 .. num_hc), and writes the stream
+//      length, so the host never waits;
 //   3. encode_blocks<true>: each CTA recomputes its block and writes its
-//      heads and nonzero words at num_hc + (b ? header[b-1] : 0).
+//      heads and nonzero words at num_hc + (b ? header[b-1] : 0); one more
+//      CTA copies the border tail words[num_hc*4096 ..) after the last body
+//      word.
+// Everything after the transform is common.cuh's encode_chunks, which the
+// 2D/3D encoder (encode_fp32_nd.cu) shares.
 //
 // Bound: bytes. Each element is read twice (4 B in pass 1 and 4 B in pass 3;
 // recomputing costs less than a scratch copy of the stream, which would be
@@ -30,14 +34,16 @@ namespace ndzip {
 
 template <bool kPlace>
 __global__ void __launch_bounds__(kThreads)
-encode_blocks(const uint32_t* __restrict__ words, uint64_t num_hc,
+encode_blocks(const uint32_t* __restrict__ words, uint64_t num_hc, Border border,
               uint32_t* __restrict__ lengths, uint32_t* __restrict__ stream) {
-    __shared__ uint32_t x[kPadded];
-    __shared__ uint32_t heads[kChunks];
-    __shared__ uint32_t offsets[kChunks];  // per-chunk counts, then their exclusive scan
-    __shared__ uint32_t total;
     const uint64_t b = blockIdx.x;
-    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const int t = threadIdx.x;
+    if (kPlace && b >= num_hc) {  // the border CTA
+        encode_border(words, border, num_hc, b - num_hc, stream);
+        return;
+    }
+
+    __shared__ EncodeShared s;
 
     // load the block with 16-byte loads, rotating each word left by one
     const uint4* src = reinterpret_cast<const uint4*>(words + b * kHcSize);
@@ -45,93 +51,27 @@ encode_blocks(const uint32_t* __restrict__ words, uint64_t num_hc,
     for (int k = 0; k < kHcSize / 4 / kThreads; ++k) {
         const int q = t + k * kThreads;
         const uint4 v = src[q];
-        x[pad(4 * q)] = rotl1(v.x);
-        x[pad(4 * q + 1)] = rotl1(v.y);
-        x[pad(4 * q + 2)] = rotl1(v.z);
-        x[pad(4 * q + 3)] = rotl1(v.w);
+        s.x[pad(4 * q)] = rotl1(v.x);
+        s.x[pad(4 * q + 1)] = rotl1(v.y);
+        s.x[pad(4 * q + 2)] = rotl1(v.z);
+        s.x[pad(4 * q + 3)] = rotl1(v.w);
     }
     __syncthreads();
 
     // first differences along the block (word 0 stays), then complement
     uint32_t seg[kWordsPerThread];
-    uint32_t prev = t ? x[pad(kWordsPerThread * t - 1)] : 0u;
+    uint32_t prev = t ? s.x[pad(kWordsPerThread * t - 1)] : 0u;
 #pragma unroll
-    for (int k = 0; k < kWordsPerThread; ++k) seg[k] = x[pad(kWordsPerThread * t + k)];
+    for (int k = 0; k < kWordsPerThread; ++k) seg[k] = s.x[pad(kWordsPerThread * t + k)];
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < kWordsPerThread; ++k) {
-        x[pad(kWordsPerThread * t + k)] = complement_negative(seg[k] - prev);
+        s.x[pad(kWordsPerThread * t + k)] = complement_negative(seg[k] - prev);
         prev = seg[k];
     }
     __syncthreads();
 
-    // transpose each chunk; head bit (31-i) is set iff transposed word i != 0
-#pragma unroll 4
-    for (int k = 0; k < kChunksPerWarp; ++k) {
-        const int c = warp * kChunksPerWarp + k;
-        const uint32_t v = warp_transpose_bits(x[pad(32 * c + lane)], lane);
-        x[pad(32 * c + lane)] = v;
-        const uint32_t nz = __ballot_sync(kFull, v != 0);
-        if (lane == 0) {
-            heads[c] = __brev(nz);
-            offsets[c] = __popc(nz);
-        }
-    }
-    __syncthreads();
-    if (warp == 0) {
-        const uint32_t n = chunk_exclusive_scan(offsets, lane);
-        if (lane == 0) total = n;
-    }
-    __syncthreads();
-
-    if (!kPlace) {
-        if (t == 0) lengths[b] = kChunks + total;
-        return;
-    }
-    uint32_t* dst = stream + num_hc + (b ? stream[b - 1] : 0u);
-    if (t < kChunks) dst[t] = heads[t];
-#pragma unroll 4
-    for (int k = 0; k < kChunksPerWarp; ++k) {
-        const int c = warp * kChunksPerWarp + k;
-        const uint32_t v = x[pad(32 * c + lane)];
-        const uint32_t nz = __ballot_sync(kFull, v != 0);
-        if (v) dst[kChunks + offsets[c] + __popc(nz & lanemask_lt(lane))] = v;
-    }
-}
-
-// Inclusive scan of the n block lengths into header[0 .. n), one CTA of
-// 1024 threads, each over a contiguous run of ceil(n / 1024) entries. The
-// body's total is then known in shared memory: the CTA copies the border
-// tail after the last body word and writes the stream length in words.
-__global__ void __launch_bounds__(1024)
-scan_lengths(const uint32_t* __restrict__ lengths, uint64_t n, const uint32_t* __restrict__ tail,
-             uint64_t border, uint32_t* __restrict__ header, int32_t* __restrict__ length) {
-    __shared__ uint32_t warp_offset[32];
-    __shared__ uint32_t body_total;
-    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-    const uint64_t per = (n + 1023) / 1024;
-    const uint64_t begin = t * per < n ? t * per : n;
-    const uint64_t end = begin + per < n ? begin + per : n;
-    uint32_t sum = 0;
-    for (uint64_t i = begin; i < end; ++i) sum += lengths[i];
-    const uint32_t incl = warp_inclusive_scan(sum, lane);
-    if (lane == 31) warp_offset[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-        const uint32_t w = warp_offset[lane];
-        const uint32_t all = warp_inclusive_scan(w, lane);
-        warp_offset[lane] = all - w;
-        if (lane == 31) body_total = all;
-    }
-    __syncthreads();
-    uint32_t run = warp_offset[warp] + incl - sum;
-    for (uint64_t i = begin; i < end; ++i) {
-        run += lengths[i];
-        header[i] = run;
-    }
-    uint32_t* dst = header + n + body_total;
-    for (uint64_t i = t; i < border; i += blockDim.x) dst[i] = tail[i];
-    if (t == 0) *length = static_cast<int32_t>(n + body_total + border);
+    encode_chunks<kPlace>(s, b, num_hc, lengths, stream);
 }
 
 }  // namespace ndzip
@@ -150,11 +90,14 @@ extern "C" int ndzip_encode_fp32(const void* words, int64_t num_hc, int64_t bord
     auto* lens = static_cast<uint32_t*>(lengths);
     const auto n = static_cast<uint64_t>(num_hc);
 
-    encode_blocks<false><<<static_cast<unsigned>(num_hc), kThreads, 0, s>>>(in, n, lens, out);
+    // the border tail words[num_hc * 4096 ..) on the three-axis view (1, 1, n)
+    const uint64_t covered = n * kHcSize, count = static_cast<uint64_t>(border);
+    const Border tail{1, covered + count, 1, 1, covered, count};
+    const auto grid = static_cast<unsigned>(num_hc);
+    encode_blocks<false><<<grid, kThreads, 0, s>>>(in, n, tail, lens, out);
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    scan_lengths<<<1, 1024, 0, s>>>(lens, n, in + n * kHcSize, static_cast<uint64_t>(border), out,
-                                    static_cast<int32_t*>(length));
+    scan_lengths<<<1, 1024, 0, s>>>(lens, n, count, out, static_cast<int32_t*>(length));
     if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    encode_blocks<true><<<static_cast<unsigned>(num_hc), kThreads, 0, s>>>(in, n, lens, out);
+    encode_blocks<true><<<grid + border_ctas(count), kThreads, 0, s>>>(in, n, tail, lens, out);
     return cudaGetLastError();
 }

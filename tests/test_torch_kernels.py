@@ -1,12 +1,15 @@
-"""The two fp32 1D kernels of the port.
+"""The four fp32 kernels of the port and the plain versions they are held to.
 
-On the CPU: the plain PyTorch versions (codec_torch.encode_blocks_ref and
-decode_blocks_ref) against the JAX package's Pallas kernels B1
-(_encode_blocks_fp32) and B2 (_decode_blocks_fp32) in interpret mode, exact.
-On a card (marker ``cuda``, skipped elsewhere): the CUDA kernels against the
-plain versions and against ``golden`` on chip_smoke.py's phase-3 cases,
-exact: the kernel's stream is golden's byte for byte, and the decode kernel
-gives back the input from golden's stream. Run those on the card
+On the CPU: the plain PyTorch versions (codec_torch.encode_blocks_ref,
+decode_blocks_ref, block_transform, the gather and border functions) against
+``golden``, ``format.border_slices`` and the JAX package's Pallas kernels in
+interpret mode, exact: B1 (_encode_blocks_fp32) and B2 (_decode_blocks_fp32)
+for 1D and the gather route of 2D, B3 (_encode_interior_fp32) and B4
+(_decode_interior_fp32) for tiled 2D/3D grids. On a card (marker ``cuda``,
+skipped elsewhere): the CUDA kernels against the plain versions and against
+``golden`` on chip_smoke.py's phase-3 cases, exact: the kernel's stream is
+golden's byte for byte, and the decode kernel gives back the input from
+golden's stream. Run those on the card
 with ``NDZIP_TPU_TESTS_TPU=1 python -m pytest tests/test_torch_kernels.py -m cuda``
 (the variable keeps tests/conftest.py from setting up JAX, which the port's
 GPU machines need not have).
@@ -17,7 +20,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import kernel_cases  # noqa: E402
+from chip_smoke import kernel_cases, nd_kernel_cases  # noqa: E402
+from ndzip_tpu import format as fmt  # noqa: E402
 from ndzip_tpu import golden  # noqa: E402
 from ndzip_tpu_torch import codec_cuda, codec_torch  # noqa: E402
 
@@ -117,5 +121,161 @@ def test_cuda_kernels_match_plain(cuda, label):
     assert torch.equal(out[: num_hc * HC], codec_torch.decode_blocks_ref(junk, num_hc).reshape(-1))
     assert torch.equal(out, w)
     g_out = codec_cuda._decode_blocks_fp32(torch.from_numpy(g_stream.view(np.int32)).to(cuda), n)
+    torch.cuda.synchronize()
+    assert torch.equal(g_out, w)
+
+
+# ------------------------------------------------------------ 2D/3D
+
+
+def grid_of(shape, seed):
+    """tests/test_pallas.py's data on a grid: normal values, a zero run, a repeated run."""
+    data = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+    flat = data.reshape(-1)
+    flat[:200] = 0
+    flat[300:340] = flat[299]
+    return data
+
+
+def as_tensor(words: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(words).view(np.int32))
+
+
+@pytest.mark.parametrize("dims", [1, 2, 3])
+def test_block_transform_matches_golden(dims):
+    blocks = np.random.default_rng(dims).integers(0, 2**32, (5, HC), dtype=np.uint64).astype(np.uint32)
+    blocks[0] = 0
+    blocks[1] = blocks[1, 0]  # a constant block
+    ours = codec_torch.block_transform(as_tensor(blocks), dims).numpy().view(np.uint32)
+    assert np.array_equal(ours, golden.block_transform(blocks, dims))
+    back = codec_torch.inverse_block_transform(torch.from_numpy(ours.view(np.int32)), dims)
+    assert np.array_equal(back.numpy().view(np.uint32), blocks)
+    inv = codec_torch.inverse_block_transform(as_tensor(blocks), dims).numpy().view(np.uint32)
+    assert np.array_equal(inv, golden.inverse_block_transform(blocks, dims))
+
+
+@pytest.mark.parametrize("shape", [(128, 512), (16, 32, 128)])
+def test_encode_nd_matches_pallas_interior(pallas, shape):
+    """The plain encode of a tiled grid against B3 (the tiled Pallas encoder)."""
+    data = grid_of(shape, seed=len(shape))
+    words = data.view(np.uint32)
+    dims, num_hc = len(shape), fmt.num_hypercubes(shape)
+    header, body, _ = codec_torch.encode_blocks_ref(
+        codec_torch.gather_blocks(as_tensor(words), shape), dims)
+
+    G = pallas._g_tiled(shape, dims, pallas.G_ENC)
+    body2d, hdr2d = pallas._encode_interior_fp32(words, shape, num_hc, G)
+    jax_header = np.asarray(hdr2d)[:, :G].reshape(-1)[:num_hc]
+    jax_body = np.asarray(body2d).reshape(-1)[num_hc: num_hc + int(jax_header[-1])]
+    assert np.array_equal(header.numpy().view(np.uint32), jax_header)
+    assert np.array_equal(body.numpy().view(np.uint32), jax_body)
+
+
+@pytest.mark.parametrize("shape", [(128, 512), (16, 32, 128)])
+def test_decode_nd_matches_pallas_interior(pallas, shape):
+    """The plain decode of a tiled grid against B4 (the tiled Pallas decoder),
+    whose starts come in padded-grid order (_padded_block_ids)."""
+    data = grid_of(shape, seed=10 + len(shape))
+    stream, _ = golden.compress(data)
+    dims, num_hc = len(shape), fmt.num_hypercubes(shape)
+    out = torch.empty(shape, dtype=torch.int32)
+    codec_torch.scatter_blocks(codec_torch.decode_blocks_ref(as_tensor(stream), num_hc, dims), shape, out)
+
+    offsets = stream[:num_hc].astype(np.int32)
+    starts = num_hc + np.concatenate([[0], offsets[:-1]]).astype(np.int32)
+    G, gx = pallas._g_tiled_padded(shape, dims, pallas.G_DEC, exact_cap=pallas.G_EXACT_CAP)
+    ids = pallas._padded_block_ids(shape, dims, G, gx)
+    lanes = pallas.LANES
+    rows = -(-(stream.size + pallas.WIN_ROWS * lanes) // lanes)
+    padded = np.zeros(rows * lanes, np.uint32)
+    padded[: stream.size] = stream
+    theirs = pallas._decode_interior_fp32(padded.reshape(rows, lanes), starts[ids], shape, num_hc, G, gx)
+
+    assert np.array_equal(out.numpy().view(np.uint32), np.asarray(theirs))
+    assert np.array_equal(out.numpy().view(np.uint32), data.view(np.uint32))
+
+
+def test_gather_route_matches_pallas_blocks(pallas):
+    """(128, 192): a minor block-grid axis of 3 takes the JAX package's gather
+    route into B1 with dims=2; the plain gather and encode give its words."""
+    shape = (128, 192)
+    data = grid_of(shape, seed=7)
+    nb = fmt.num_hypercubes(shape)
+    blocks = codec_torch.gather_blocks(as_tensor(data.view(np.uint32)), shape)
+    assert np.array_equal(blocks.numpy().view(np.uint32), golden.gather_blocks(data.view(np.uint32)))
+    header, body, _ = codec_torch.encode_blocks_ref(blocks, 2)
+
+    G = pallas.G_ENC
+    padded = np.zeros((-(-nb // G) * G, HC), np.uint32)
+    padded[:nb] = blocks.numpy().view(np.uint32)
+    body2d, hdr2d = pallas._encode_blocks_fp32(padded, 2, nb)
+    jax_header = np.asarray(hdr2d)[:, :G].reshape(-1)[:nb]
+    assert np.array_equal(header.numpy().view(np.uint32), jax_header)
+    assert np.array_equal(body.numpy().view(np.uint32),
+                          np.asarray(body2d).reshape(-1)[nb: nb + int(jax_header[-1])])
+
+
+#: every pattern of bordered axes in 1-3 dims, and grids that are all border
+BORDER_SHAPES = [
+    (4096 * 2,), (4096 * 2 + 5,), (100,), (0,),
+    (128, 192), (130, 192), (128, 193), (130, 513), (63, 100), (64, 10), (1800, 130),
+    (32, 32, 32), (33, 32, 32), (32, 33, 32), (32, 32, 33), (33, 33, 32), (33, 32, 33),
+    (32, 33, 33), (17, 32, 129), (15, 16, 200), (16, 16, 15), (40, 3, 50),
+]
+
+
+@pytest.mark.parametrize("shape", BORDER_SHAPES, ids=str)
+def test_border_offsets_match_border_slices(shape):
+    runs = fmt.border_slices(shape)
+    expected = (np.concatenate([np.arange(off, off + cnt) for off, cnt in runs]) if runs
+                else np.zeros(0, np.int64))
+    assert np.array_equal(codec_torch.border_offsets(shape).numpy(), expected)
+
+
+@pytest.mark.parametrize("shape", BORDER_SHAPES, ids=str)
+def test_border_take_and_place_follow_offsets(shape):
+    words = torch.arange(int(np.prod(shape)), dtype=torch.int32).reshape(shape) * 7 + 1
+    values = codec_torch.border_take(words, shape)
+    assert torch.equal(values, words.reshape(-1)[codec_torch.border_offsets(shape)])
+    out = torch.zeros(shape, dtype=torch.int32)
+    codec_torch.border_place(out, values, shape)
+    placed = torch.zeros(int(np.prod(shape)), dtype=torch.int32)
+    placed[codec_torch.border_offsets(shape)] = values
+    assert torch.equal(out.reshape(-1), placed)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(nd_kernel_cases()))
+def test_cuda_nd_kernels_match_plain(cuda, label):
+    data = nd_kernel_cases()[label]
+    shape, dims = data.shape, data.ndim
+    num_hc = fmt.num_hypercubes(shape)
+    w = torch.from_numpy(data.view(np.int32)).to(cuda)
+    ref_stream, ref_length = codec_torch.encode(w)
+    L = int(ref_length)
+    g_stream, g_length = golden.compress(data.view(np.float32))
+    assert L == g_length
+    junk = ref_stream.clone()
+    junk[L:] = -1
+    if num_hc == 0:  # all border: the glue copies, no kernel runs
+        stream, length = codec_cuda.compress_device(w)
+        assert int(length) == L and torch.equal(stream, ref_stream)
+        assert torch.equal(codec_cuda.decompress_device(junk, shape, torch.int32), w)
+        return
+
+    stream, length = codec_cuda._encode_interior_fp32(w)
+    header, body, _ = codec_torch.encode_blocks_ref(codec_torch.gather_blocks(w, shape), dims)
+    torch.cuda.synchronize()
+    assert int(length) == L
+    assert torch.equal(stream[:num_hc], header)
+    assert torch.equal(stream[num_hc: num_hc + int(header[-1])], body)
+    assert stream[:L].cpu().numpy().view(np.uint32).tobytes() == g_stream.tobytes()
+
+    out = codec_cuda._decode_interior_fp32(junk, shape)
+    torch.cuda.synchronize()
+    assert torch.equal(codec_torch.gather_blocks(out, shape),
+                       codec_torch.decode_blocks_ref(junk, num_hc, dims))
+    assert torch.equal(out, w)
+    g_out = codec_cuda._decode_interior_fp32(torch.from_numpy(g_stream.view(np.int32)).to(cuda), shape)
     torch.cuda.synchronize()
     assert torch.equal(g_out, w)

@@ -1,6 +1,6 @@
 """The port's package as a whole: it imports no JAX, its kernel build has no
-fallback, its CUDA entry points refuse CPU tensors, and profiles outside the
-fp32 1D slice raise NotImplementedError."""
+fallback, its CUDA entry points refuse CPU tensors, and fp64, which the port
+does not cover yet, raises NotImplementedError in 1-3 dims."""
 
 import subprocess
 import sys
@@ -63,17 +63,24 @@ def test_cuda_entry_points_refuse_cpu_tensors():
         codec_cuda.decompress_device(torch.zeros(10, dtype=torch.int32), (4096 * 2,))
     with pytest.raises(ValueError, match="CUDA"):
         codec_cuda._decode_blocks_fp32(torch.zeros(10, dtype=torch.int32), 4096 * 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        codec_cuda.compress_device(torch.zeros(64, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        codec_cuda._encode_interior_fp32(torch.zeros(16, 16, 16, dtype=torch.int32))
+    with pytest.raises(ValueError, match="CUDA"):
+        codec_cuda.decompress_device(torch.zeros(10, dtype=torch.int32), (64, 64))
+    with pytest.raises(ValueError, match="CUDA"):
+        codec_cuda._decode_interior_fp32(torch.zeros(10, dtype=torch.int32), (16, 16, 16))
     assert codec_cuda.LAUNCHES == before
 
 
-@pytest.mark.parametrize("x", [torch.zeros(4096, dtype=torch.float64), torch.zeros(64, 64),
-                               torch.zeros(16, 16, 16)], ids=["fp64", "2d", "3d"])
-def test_other_profiles_are_not_implemented(x):
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        nt.compress_device(x)
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item"):
-        nt.decompress_device(torch.zeros(10, dtype=torch.int32), tuple(x.shape),
-                             np.float64 if x.dtype == torch.float64 else np.float32)
+@pytest.mark.parametrize("shape", [(4096,), (64, 64), (16, 16, 16)], ids=["fp64", "2d", "3d"])
+def test_other_profiles_are_not_implemented(shape):
+    """fp64 in 1, 2 and 3 dims (ROADMAP Queue 1 item 6)."""
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+        nt.compress_device(torch.zeros(shape, dtype=torch.float64))
+    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
+        nt.decompress_device(torch.zeros(10, dtype=torch.int32), shape, np.float64)
 
 
 def test_bad_inputs_raise_value_error():
