@@ -11,16 +11,20 @@ line each, and any failure raises and exits nonzero:
    kernels on small fp32 1D cases (borders, zeros, incompressible bits,
    constants, one block, special floats), the 2D/3D kernels on small grids
    (aligned and unaligned rows, borders on one or two axes, constants, random
-   bits, special floats), and one all-border grid through the glue; each
+   bits, special floats), and one all-border grid through the glue; then the
+   four fp64 kernels on tests/test_pallas.py's fp64 shapes (an odd block
+   count with the header's pad word, borders, 2D/3D) and on zeros, random
+   64-bit words, a constant, special floats and one all-border grid; each
    decode reads the plain stream with -1 written past its length;
 4. the paths through the public entry points: ``compress_device`` then
-   ``decompress_device(stream[:length], shape)``, fp32 1D at 2^24 elements
-   (bench.py's headline data) and 2^28 + 17, then fp32 2D/3D at bench.py's
-   CESM 1800x3600, 256^3 and 512x512x2048 (2 GiB) cells: streams equal to the
-   plain version's on the card, bit-exact round trips, and the kernels' launch
-   counts over each path, counted from 0 just before it. The tests hold the
-   plain version's stream against the reference package byte for byte; this
-   script imports nothing of that package;
+   ``decompress_device(stream[:length], shape, dtype)``, fp32 1D at 2^24
+   elements (bench.py's headline data) and 2^28 + 17, fp32 2D/3D at
+   bench.py's CESM 1800x3600, 256^3 and 512x512x2048 (2 GiB) cells, then
+   fp64 at bench.py's 1D 2^23 and 512^3 (1 GiB) cells: streams equal to the
+   plain version's on the card, bit-exact round trips, and the kernels'
+   launch counts over each path, counted from 0 just before it. The tests
+   hold the plain version's stream against the reference package byte for
+   byte; this script imports nothing of that package;
 5. timing with CUDA events: median of 10 runs after a warm-up, compress and
    decompress against the plain version and a device-to-device ``copy_``,
    per size and cell; then each kernel's mean device time per call from
@@ -51,11 +55,17 @@ def fail(what: str):
 
 
 def max_abs_err(a, b) -> int:
-    """Largest |a - b| over int32 words of equal shape (0 when bit-identical)."""
+    """Largest |a - b| over the 32-bit words of int32 or int64 tensors of
+    equal shape (0 when bit-identical). An int64 word counts as its two u32
+    halves, whose difference cannot overflow."""
+    import torch
+
     if a.shape != b.shape:
         fail(f"shapes differ: {tuple(a.shape)} vs {tuple(b.shape)}")
     if a.numel() == 0:
         return 0
+    if a.dtype == torch.int64:
+        a, b = a.view(torch.int32), b.view(torch.int32)
     return int((a.long() - b.long()).abs().max())
 
 
@@ -92,6 +102,23 @@ def big_cube(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     d = torch.sin(z[:, None, None]) * torch.cos(z[None, :, None]) * torch.sin(x[None, None, :])
     return d + 1e-3 * torch.randn((512, 512, 2048), device=dev, generator=gen)
+
+
+def bench_data64(n: int) -> np.ndarray:
+    """bench.py's fp64 1D cell: sin(i * 1e-4) + 1e-3 * N(0, 1) in float64, seed 0."""
+    rng = np.random.default_rng(SEED)
+    return np.sin(np.arange(n, dtype=np.float64) * 1e-4) + 0.001 * rng.standard_normal(n)
+
+
+def cube64(dev):
+    """bench.py's fp64 512^3 cell (1 GiB): sin(z) cos(y) sin(2x) + 1e-3 * N(0, 1)
+    in float64, made on the card with a torch.Generator seeded with SEED."""
+    import torch
+
+    z = torch.linspace(0, 9.0, 512, dtype=torch.float64, device=dev)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    d = torch.sin(z[:, None, None]) * torch.cos(z[None, :, None]) * torch.sin(2 * z[None, None, :])
+    return d + 1e-3 * torch.randn((512, 512, 512), dtype=torch.float64, device=dev, generator=gen)
 
 
 def kernel_breakdown(fn) -> str:
@@ -168,6 +195,49 @@ def nd_kernel_cases() -> dict[str, np.ndarray]:
     }
 
 
+def fp64_kernel_cases() -> dict[str, np.ndarray]:
+    """Small fp64 grids for the four fp64 kernels: tests/test_pallas.py's
+    SHAPES64 (1D with an odd block count, the header's pad word and a border;
+    2D/3D with borders, minor extents even (16-byte rows) and odd (one word a
+    lane)), zeros, random 64-bit words (every block at its 4160-word
+    maximum), a constant, special floats, and one all-border grid."""
+    rng = np.random.default_rng(SEED)
+
+    def normal(shape):
+        d = rng.standard_normal(shape)
+        d.reshape(-1)[:200] = 0
+        d.reshape(-1)[300:340] = d.reshape(-1)[299]
+        return d
+
+    def special(shape):
+        d = normal(shape)
+        flat = d.reshape(-1)
+        flat[[5, 4100, 9000]] = np.nan
+        flat[[9, 4103]] = np.array([0x7FF0000000000001, 0xFFF80000DEADBEEF], np.uint64).view(np.float64)
+        flat[[6, 4101]] = np.inf
+        flat[[7, 20000]] = -np.inf
+        flat[[8, 4102, 32790]] = -0.0
+        flat[1000:1064] = 5e-324 * np.arange(64)  # denormals
+        return d
+
+    return {
+        "1d 4096*8": normal(4096 * 8),
+        "1d odd block count + border 4096*3+1": normal(4096 * 3 + 1),
+        "1d all zeros": np.zeros(4096 * 8),
+        "1d random bits": rng.integers(0, 2**64, 4096 * 8, dtype=np.uint64).view(np.float64),
+        "1d constant": np.full(4096 * 8, 3.25),
+        "1d nan/inf/-0/denormal": special(4096 * 8 + 37),
+        "2d border (128,70)": normal((128, 70)),
+        "3d (16,32,32)": normal((16, 32, 32)),
+        "2d (128,512)": normal((128, 512)),
+        "3d border (17,16,128)": normal((17, 16, 128)),
+        "3d odd minor extent (17,32,129)": normal((17, 32, 129)),
+        "2d random bits (128,192)": rng.integers(0, 2**64, (128, 192), dtype=np.uint64).view(np.float64),
+        "3d nan/inf/-0/denormal (32,32,48)": special((32, 32, 48)),
+        "3d all border (15,16,200)": normal((15, 16, 200)),
+    }
+
+
 def main() -> int:
     import torch
 
@@ -196,10 +266,10 @@ def main() -> int:
     _build.load()
     print(f"[2 build] {lib_path.name} in {time.perf_counter() - t0:.2f} s", flush=True)
 
-    err = {"encode": 0, "decode": 0, "encode_nd": 0, "decode_nd": 0}
+    err = dict.fromkeys(codec_cuda.LAUNCHES, 0)
 
     def cuda_words(data: np.ndarray):
-        return torch.from_numpy(np.ascontiguousarray(data).view(np.int32)).to(dev)
+        return torch.from_numpy(np.ascontiguousarray(data).view(np.int32 if data.itemsize == 4 else np.int64)).to(dev)
 
     # ---- 3. each kernel against its plain version, exact
     for label, data in kernel_cases().items():
@@ -264,20 +334,71 @@ def main() -> int:
         print(f"[3 kernels] {label}: blocks={num_hc} length={L} nd encode == plain, "
               f"nd decode == plain == input", flush=True)
 
+    for label, data in fp64_kernel_cases().items():
+        w = cuda_words(data)
+        shape, dims = tuple(w.shape), w.dim()
+        num_hc = math.prod(e // {1: HC, 2: 64, 3: 16}[dims] for e in shape)
+        ref_stream, ref_length = codec_torch.encode(w)
+        L = int(ref_length)
+        garbage = ref_stream.clone()
+        garbage[L:] = -1
+        if num_hc == 0:  # all border: the glue copies, no kernel runs
+            stream, length = nt.compress_device(w)
+            out = nt.decompress_device(garbage, shape, torch.int64)
+            if int(length) != L or max_abs_err(stream, ref_stream) or not torch.equal(out, w):
+                fail(f"fp64 all-border glue != plain on {label!r}")
+            print(f"[3 kernels fp64] {label}: all border, glue == plain == input", flush=True)
+            continue
+        enc, dec = ("encode64", "decode64") if dims == 1 else ("encode64_nd", "decode64_nd")
+        if dims == 1:
+            stream, length = codec_cuda._encode_blocks_fp64(w)
+        else:
+            stream, length = codec_cuda._encode_interior_fp64(w)
+        header, body, lengths = codec_torch.encode_blocks_ref(codec_torch.gather_blocks(w, shape), dims)
+        hw2, body_total = 2 * ((num_hc + 1) // 2), int(header[-1])  # u32 words of header and pad
+        same_length = int(length) == L
+        e = max(max_abs_err(stream[:num_hc], header),
+                max_abs_err(stream[hw2: hw2 + 2 * body_total].view(torch.int64), body),
+                max_abs_err(stream[:L], ref_stream[:L]) if same_length else -1)
+        differing = int((stream[:L] != ref_stream[:L]).sum()) if same_length else -1
+        err[enc] = max(err[enc], e)
+        if e or differing:
+            fail(f"fp64 encode kernel != plain on {label!r} (max_abs_err {e}, {differing} differing "
+                 f"u32 words, length {int(length)} vs {L})")
+        if "random bits" in label and int(lengths.min()) != HC + HC // 64:
+            fail("random bits did not give every fp64 block the 4160-word maximum")
+        out = (codec_cuda._decode_blocks_fp64(garbage, shape[0]) if dims == 1
+               else codec_cuda._decode_interior_fp64(garbage, shape))
+        blocks = codec_torch.decode_blocks_ref(garbage, num_hc, dims, 64)
+        e = max(max_abs_err(codec_torch.gather_blocks(out, shape), blocks),
+                max_abs_err(out, codec_torch.decode(ref_stream, shape, 64)))
+        differing = int((out != w).sum())
+        err[dec] = max(err[dec], e)
+        if e or differing:
+            fail(f"fp64 decode kernel != plain or != input on {label!r} (max_abs_err {e}, "
+                 f"{differing} words differ from the input)")
+        print(f"[3 kernels fp64] {label}: blocks={num_hc} length={L} u32 words, {enc} == plain, "
+              f"{dec} == plain == input (0 differing words)", flush=True)
+
+    def kernel_keys(x):
+        """The LAUNCHES keys of the encode and decode kernels that take ``x``."""
+        suffix = ("64" if x.element_size() == 8 else "") + ("_nd" if x.dim() > 1 else "")
+        return "encode" + suffix, "decode" + suffix
+
     def check_cell(x, s, L, y, what):
         """The kernels' stream and output of one cell against the plain versions on the card."""
-        shape = tuple(x.shape)
-        w = x.view(torch.int32)
-        if not torch.equal(y.view(torch.int32), w):
+        shape, bits = tuple(x.shape), x.element_size() * 8
+        w = codec_torch.as_words(x)
+        if not torch.equal(codec_torch.as_words(y), w):
             fail(f"{what}: round trip is not bit-exact")
         ps, pl = codec_torch.encode(w)
         e = max_abs_err(s[:L], ps[: int(pl)]) if L == int(pl) else -1
-        enc, dec = ("encode", "decode") if len(shape) == 1 else ("encode_nd", "decode_nd")
+        enc, dec = kernel_keys(x)
         err[enc] = max(err[enc], e)
         if e:
             fail(f"{what}: kernel stream differs from the plain version's on the card")
         del ps
-        e = max_abs_err(y.view(torch.int32), codec_torch.decode(s[:L], shape))
+        e = max_abs_err(codec_torch.as_words(y), codec_torch.decode(s[:L], shape, bits))
         err[dec] = max(err[dec], e)
         if e:
             fail(f"{what}: kernel decode differs from the plain version's on the card")
@@ -328,17 +449,17 @@ def main() -> int:
 
     def time_cell(x, label):
         """Phase 5 for one size or cell; returns the timed rows."""
-        shape = tuple(x.shape)
-        w = x.view(torch.int32)
+        shape, bits = tuple(x.shape), x.element_size() * 8
+        w = codec_torch.as_words(x)
         s, length = nt.compress_device(x)
         sl = s[: int(length)]
         dst = torch.empty_like(x)
-        gb = x.numel() * 4 / 1e9
+        gb = x.numel() * x.element_size() / 1e9
         rows = {
             "compress": median_ms(lambda: nt.compress_device(x)),
             "compress plain": median_ms(lambda: codec_torch.encode(w)),
-            "decompress": median_ms(lambda: nt.decompress_device(sl, shape)),
-            "decompress plain": median_ms(lambda: codec_torch.decode(sl, shape)),
+            "decompress": median_ms(lambda: nt.decompress_device(sl, shape, x.dtype)),
+            "decompress plain": median_ms(lambda: codec_torch.decode(sl, shape, bits)),
             "copy_": median_ms(lambda: dst.copy_(x)),
         }
         for what, ms in rows.items():
@@ -346,7 +467,7 @@ def main() -> int:
                   f"{gb / (ms * 1e-3):.1f} GB/s (uncompressed bytes / time, median of {REPS}) "
                   f"on {card}", flush=True)
         for what, fn in (("compress", lambda: nt.compress_device(x)),
-                         ("decompress", lambda: nt.decompress_device(sl, shape))):
+                         ("decompress", lambda: nt.decompress_device(sl, shape, x.dtype))):
             print(f"[5 profile] {label} {what}, mean device us per call by kernel over {REPS} calls: "
                   f"{kernel_breakdown(fn)} on {card}", flush=True)
         return rows, sl
@@ -396,6 +517,41 @@ def main() -> int:
         torch.cuda.empty_cache()
     launches.update(launches_nd)
 
+    # ---- 4 and 5 for the fp64 path: bench.py's 1D 2^23 and 512^3 cells
+    cells64 = (("fp64 2^23", lambda: torch.from_numpy(bench_data64(2**23)).to(dev)),
+               ("fp64 512^3", lambda: cube64(dev)))
+    for label, make in cells64:
+        x = make()
+        shape = tuple(x.shape)
+        torch.cuda.synchronize()
+        for k in codec_cuda.LAUNCHES:
+            codec_cuda.LAUNCHES[k] = 0
+        s, length = nt.compress_device(x)
+        L = int(length)
+        y = nt.decompress_device(s[:L], shape, torch.float64)
+        torch.cuda.synchronize()
+        counts = dict(codec_cuda.LAUNCHES)
+        enc, dec = kernel_keys(x)
+        if counts[enc] == 0 or counts[dec] == 0:
+            fail(f"{label}: the fp64 path did not launch {enc} and {dec}: {counts}")
+        launches[enc], launches[dec] = counts[enc], counts[dec]
+        check_cell(x, s, L, y, label)
+        print(f"[4 path fp64] {label}: stream == plain ({L} u32 words, ratio {L / (2 * x.numel()):.4f}), "
+              f"round trip bit-exact; launches {counts}", flush=True)
+        del s, y
+        rows, sl = time_cell(x, label)
+        w = x.view(torch.int64)
+        if x.dim() == 1:
+            kernel_ms[enc] = (median_ms(lambda: codec_cuda._encode_blocks_fp64(w)), rows["compress plain"])
+            kernel_ms[dec] = (median_ms(lambda: codec_cuda._decode_blocks_fp64(sl, shape[0])),
+                              rows["decompress plain"])
+        else:
+            kernel_ms[enc] = (median_ms(lambda: codec_cuda._encode_interior_fp64(w)), rows["compress plain"])
+            kernel_ms[dec] = (median_ms(lambda: codec_cuda._decode_interior_fp64(sl, shape)),
+                              rows["decompress plain"])
+        del x, w, sl
+        torch.cuda.empty_cache()
+
     if "jax" in sys.modules:
         fail("JAX was imported")
     sources = {"encode": ("encode_fp32", "ndzip_tpu_torch/csrc/encode_fp32.cu",
@@ -405,7 +561,15 @@ def main() -> int:
                "encode_nd": ("encode_fp32_nd", "ndzip_tpu_torch/csrc/encode_fp32_nd.cu",
                              "ndzip_tpu/codec_pallas.py:944"),
                "decode_nd": ("decode_fp32_nd", "ndzip_tpu_torch/csrc/decode_fp32_nd.cu",
-                             "ndzip_tpu/codec_pallas.py:1386")}
+                             "ndzip_tpu/codec_pallas.py:1386"),
+               "encode64": ("encode_fp64", "ndzip_tpu_torch/csrc/encode_fp64.cu",
+                            "ndzip_tpu/codec_pallas.py:1575"),
+               "decode64": ("decode_fp64", "ndzip_tpu_torch/csrc/decode_fp64.cu",
+                            "ndzip_tpu/codec_pallas.py:1839"),
+               "encode64_nd": ("encode_fp64_nd", "ndzip_tpu_torch/csrc/encode_fp64_nd.cu",
+                               "ndzip_tpu/codec_pallas.py:1740"),
+               "decode64_nd": ("decode_fp64_nd", "ndzip_tpu_torch/csrc/decode_fp64_nd.cu",
+                               "ndzip_tpu/codec_pallas.py:1978")}
     kernels = [{"name": kname, "route": "cuda", "source": src, "replaces": rep,
                 "launches": launches[k], "max_abs_err": err[k],
                 "ms": kernel_ms[k][0], "plain_ms": kernel_ms[k][1]}

@@ -2,13 +2,16 @@
 kernels for NVIDIA Hopper. The port of ``ndzip_tpu``; streams are byte for
 byte the ndzip format, so either package decodes the other's.
 
-The port covers fp32 grids of 1-3 dims. A tensor's device picks the path:
+The port covers fp32 and fp64 grids of 1-3 dims. A tensor's device picks
+the path:
 
 * a CUDA tensor goes to the kernels of ``codec_cuda`` (built from
   ``csrc/`` with nvcc on first use; a failed build or launch raises);
 * a CPU tensor goes to the plain PyTorch versions of ``codec_torch``.
 
-fp64 raises NotImplementedError (ROADMAP Queue 1 item 6).
+Streams are int32 tensors and lengths count u32 words for both profiles, so
+``stream[:length]`` is the stream; ``compress`` returns the length in the
+profile's words, as ``ndzip_tpu.compress`` does.
 """
 
 from __future__ import annotations
@@ -22,9 +25,10 @@ __version__ = "0.1.0"
 
 
 def compress_device(x: torch.Tensor):
-    """Compress a float32 (or int32 word) tensor of 1-3 dims where it lies.
-    Returns ``(stream, length)``: an int32 stream of the compressed bound and
-    the int32 length as a scalar tensor on the same device."""
+    """Compress a float32/float64 (or int32/int64 word) tensor of 1-3 dims
+    where it lies. Returns ``(stream, length)``: an int32 stream of the
+    compressed bound and its length in u32 words as an int32 scalar tensor
+    on the same device."""
     if x.is_cuda:
         return codec_cuda.compress_device(x)
     words = codec_torch.as_words(x)
@@ -35,22 +39,24 @@ def compress_device(x: torch.Tensor):
 
 def decompress_device(stream: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
     """Decompress an int32 stream into a tensor of ``shape`` on the stream's
-    device: float32 for float32, int32 for 32-bit word types."""
+    device: float32/float64 for those, int32/int64 for the word types."""
     if stream.is_cuda:
         return codec_cuda.decompress_device(stream, shape, dtype)
     out_dtype = codec_torch.output_dtype(shape, dtype)
     if stream.device.type != "cpu" or stream.dtype != torch.int32:
         raise ValueError(f"expected an int32 stream on the CPU or a CUDA device, got "
                          f"{stream.dtype} on {stream.device}")
-    return codec_torch.decode(stream, shape).view(out_dtype)
+    return codec_torch.decode(stream, shape, out_dtype.itemsize * 8).view(out_dtype)
 
 
 def compress(data: np.ndarray, device="cuda") -> tuple[np.ndarray, int]:
-    """Compress a float32 numpy array of 1-3 dims on ``device``; returns
-    (uint32 stream, length in words) as ``ndzip_tpu.compress`` does."""
-    stream, length = compress_device(interop.words_from_numpy(data, device))
+    """Compress a float32/float64 numpy array of 1-3 dims on ``device``;
+    returns (uint32 stream, length in the profile's words) as
+    ``ndzip_tpu.compress`` does."""
+    words = interop.words_from_numpy(data, device)
+    stream, length = compress_device(words)
     length = int(length)
-    return interop.stream_to_numpy(stream, length), length
+    return interop.stream_to_numpy(stream, length), length // (words.element_size() // 4)
 
 
 def decompress(stream: np.ndarray, shape, dtype=np.float32, device="cuda") -> np.ndarray:

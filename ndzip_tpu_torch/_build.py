@@ -37,6 +37,12 @@ SIGNATURES = {
     "ndzip_encode_fp32_nd": [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P],
     # stream, size, dims, e0, e1, e2, out, cuda stream
     "ndzip_decode_fp32_nd": [_P, _I64, _I64, _I64, _I64, _I64, _P, _P],
+    # the fp64 kernels take the same arguments; words, out and sizes count u64 words,
+    # except the stream's size, which counts u32 words
+    "ndzip_encode_fp64": [_P, _I64, _I64, _P, _P, _P, _P],
+    "ndzip_decode_fp64": [_P, _I64, _I64, _I64, _P, _P],
+    "ndzip_encode_fp64_nd": [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P],
+    "ndzip_decode_fp64_nd": [_P, _I64, _I64, _I64, _I64, _I64, _P, _P],
 }
 
 

@@ -1,7 +1,7 @@
-"""The fp32 device codec on CUDA, for grids of 1-3 dims: hand-written
-kernels and their glue.
+"""The device codec on CUDA, for fp32 and fp64 grids of 1-3 dims:
+hand-written kernels and their glue.
 
-The counterpart of ``ndzip_tpu/codec_pallas.py`` for fp32:
+The counterpart of ``ndzip_tpu/codec_pallas.py``. fp32:
 
 * ``_encode_blocks_fp32`` launches the 1D encoder of ``csrc/encode_fp32.cu``
   (the TPU kernel ``_encode_kernel_fp32``, flat mode);
@@ -12,8 +12,23 @@ The counterpart of ``ndzip_tpu/codec_pallas.py`` for fp32:
   ``codec_pallas._encode_interior_fp32`` launches);
 * ``_decode_interior_fp32`` launches the 2D/3D decoder of
   ``csrc/decode_fp32_nd.cu`` (``_decode_kernel_fp32`` in tile modes);
-* ``_encode_fp32_device``/``_decode_fp32_device`` are the glue, and
-  ``compress_device``/``decompress_device`` the API.
+* ``_encode_fp32_device``/``_decode_fp32_device`` are the glue.
+
+fp64, on native 64-bit words (the TPU kernels' (lo, hi) u32 planes do not
+carry over):
+
+* ``_encode_blocks_fp64`` launches ``csrc/encode_fp64.cu``
+  (``_encode_kernel_fp64`` flat, which ``codec_pallas._encode_blocks_fp64``
+  launches);
+* ``_decode_blocks_fp64`` launches ``csrc/decode_fp64.cu``
+  (``_decode_kernel_fp64`` flat);
+* ``_encode_interior_fp64`` launches ``csrc/encode_fp64_nd.cu``
+  (``_encode_kernel_fp64`` in tile modes);
+* ``_decode_interior_fp64`` launches ``csrc/decode_fp64_nd.cu``
+  (``_decode_kernel_fp64`` in tile modes);
+* ``_encode_fp64_device``/``_decode_fp64_device`` are the glue.
+
+``compress_device``/``decompress_device`` are the API of both.
 
 Only CUDA tensors are taken here: nothing falls back to the plain versions
 of ``codec_torch``, and a failed build or launch raises. ``LAUNCHES`` counts
@@ -33,14 +48,15 @@ from . import _build
 from .codec_torch import HC, as_words, output_dtype
 
 #: launches of each kernel wrapper since the count was last set to 0
-LAUNCHES = {"encode": 0, "decode": 0, "encode_nd": 0, "decode_nd": 0}
+LAUNCHES = {"encode": 0, "decode": 0, "encode_nd": 0, "decode_nd": 0,
+            "encode64": 0, "decode64": 0, "encode64_nd": 0, "decode64_nd": 0}
 
 
-def _check_cuda_words(name: str, t: torch.Tensor, dims=(1,)):
+def _check_cuda_words(name: str, t: torch.Tensor, dims=(1,), dtype=torch.int32):
     if not t.is_cuda:
         raise ValueError(f"{name} must lie on a CUDA device, got {t.device}")
-    if t.dtype != torch.int32:
-        raise TypeError(f"{name} must be int32 words, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name} must be {dtype} words, got {t.dtype}")
     if t.dim() not in dims or not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous with {' or '.join(map(str, dims))} dims, "
                          f"got shape {tuple(t.shape)}")
@@ -169,25 +185,155 @@ def _decode_fp32_device(stream: torch.Tensor, shape) -> torch.Tensor:
     return _decode_blocks_fp32(stream, shape[0])
 
 
+# ------------------------------------------------------------ fp64
+
+
+def _check_stream64(stream: torch.Tensor, num_hc: int):
+    """An fp64 stream: int32 words on the card, a whole number of u64 words,
+    8-byte aligned, long enough for the header and its pad word."""
+    _check_cuda_words("stream", stream)
+    if stream.numel() % 2 or stream.data_ptr() % 8:
+        raise ValueError("an fp64 stream holds whole u64 words: an even number of u32 words, "
+                         "8-byte aligned")
+    if stream.numel() < fmt.header_u32_words(num_hc, 64):
+        raise ValueError(f"stream of {stream.numel()} words cannot hold a {num_hc}-entry header")
+
+
+def _encode_buffers(shape, num_hc: int, device):
+    """The stream buffer of the fp64 compressed bound, the lengths scratch
+    and the length scalar of an fp64 encode."""
+    return (torch.empty(fmt.compressed_bound_u32(shape, 64), dtype=torch.int32, device=device),
+            torch.empty(num_hc, dtype=torch.int32, device=device),
+            torch.empty((), dtype=torch.int32, device=device))
+
+
+def _encode_blocks_fp64(words: torch.Tensor):
+    """Encode (n,) int64 words, n >= 4096, 16-byte aligned, on the card.
+    Returns ``(stream, length)``: the int32 stream in a buffer of the fp64
+    compressed bound (words past ``length`` are undefined) and its length in
+    u32 words as an int32 device scalar. No host sync."""
+    _check_cuda_words("words", words, dtype=torch.int64)
+    n = words.numel()
+    num_hc = n // HC
+    if num_hc == 0:
+        raise ValueError(f"the encode kernel needs at least one {HC}-word block, got {n} words")
+    if words.data_ptr() % 16:
+        raise ValueError("words must be 16-byte aligned")
+    lib = _build.load()
+    stream, lengths, length = _encode_buffers((n,), num_hc, words.device)
+    _launch(lib.ndzip_encode_fp64, words, words.data_ptr(), num_hc, n - num_hc * HC,
+            stream.data_ptr(), lengths.data_ptr(), length.data_ptr())
+    LAUNCHES["encode64"] += 1
+    return stream, length
+
+
+def _decode_blocks_fp64(stream: torch.Tensor, n: int) -> torch.Tensor:
+    """Decode an int32 fp64 stream (header from word 0) into (n,) int64 words
+    on the card, n >= 4096. Reads only the words each block owns, so what
+    lies past the stream's length does not matter."""
+    num_hc = n // HC
+    if num_hc == 0:
+        raise ValueError(f"the decode kernel needs at least one {HC}-word block, got n={n}")
+    _check_stream64(stream, num_hc)
+    lib = _build.load()
+    out = torch.empty(n, dtype=torch.int64, device=stream.device)
+    _launch(lib.ndzip_decode_fp64, stream, stream.data_ptr(), stream.numel(), num_hc,
+            n - num_hc * HC, out.data_ptr())
+    LAUNCHES["decode64"] += 1
+    return out
+
+
+def _encode_interior_fp64(words: torch.Tensor):
+    """Encode a 2D/3D grid of int64 words with at least one whole block on
+    the card: blocks read straight from the grid, border copied after them.
+    Returns ``(stream, length)`` as ``_encode_blocks_fp64``. No host sync."""
+    _check_cuda_words("words", words, dims=(2, 3), dtype=torch.int64)
+    shape = tuple(words.shape)
+    num_hc = fmt.num_hypercubes(shape)
+    if num_hc == 0:
+        raise ValueError(f"shape {shape} has no whole block: it is all border")
+    lib = _build.load()
+    stream, lengths, length = _encode_buffers(shape, num_hc, words.device)
+    _launch(lib.ndzip_encode_fp64_nd, words, words.data_ptr(), len(shape), *_extents(shape),
+            stream.data_ptr(), lengths.data_ptr(), length.data_ptr())
+    LAUNCHES["encode64_nd"] += 1
+    return stream, length
+
+
+def _decode_interior_fp64(stream: torch.Tensor, shape) -> torch.Tensor:
+    """Decode an int32 fp64 stream into int64 words of a 2D/3D ``shape``
+    with at least one whole block on the card: blocks stored straight into
+    the grid, border placed from the stream."""
+    shape = tuple(shape)
+    if len(shape) not in (2, 3):
+        raise ValueError(f"the nd decode kernel takes 2D/3D shapes, got {shape}")
+    num_hc = fmt.num_hypercubes(shape)
+    if num_hc == 0:
+        raise ValueError(f"shape {shape} has no whole block: it is all border")
+    _check_stream64(stream, num_hc)
+    lib = _build.load()
+    out = torch.empty(shape, dtype=torch.int64, device=stream.device)
+    _launch(lib.ndzip_decode_fp64_nd, stream, stream.data_ptr(), stream.numel(), len(shape),
+            *_extents(shape), out.data_ptr())
+    LAUNCHES["decode64_nd"] += 1
+    return out
+
+
+def _encode_fp64_device(words: torch.Tensor):
+    """int64 CUDA words of 1-3 dims -> (stream, length) as in ``compress_device``."""
+    shape = tuple(words.shape)
+    if fmt.num_hypercubes(shape) == 0:  # all border: the stream is the words themselves
+        n = words.numel()
+        stream = torch.zeros(fmt.compressed_bound_u32(shape, 64), dtype=torch.int32, device=words.device)
+        stream.view(torch.int64)[:n] = words.reshape(-1)
+        return stream, torch.full((), 2 * n, dtype=torch.int32, device=words.device)
+    if len(shape) > 1:
+        return _encode_interior_fp64(words)
+    if words.data_ptr() % 16:
+        words = words.clone()
+    return _encode_blocks_fp64(words)
+
+
+def _decode_fp64_device(stream: torch.Tensor, shape) -> torch.Tensor:
+    """int32 CUDA fp64 stream -> int64 words of ``shape`` (1-3 dims)."""
+    shape = tuple(shape)
+    if stream.data_ptr() % 8:  # a slice at an odd u32 offset: realign
+        stream = stream.clone()
+    if fmt.num_hypercubes(shape) == 0:
+        n = math.prod(shape)
+        if stream.numel() < 2 * n:
+            raise ValueError(f"stream of {stream.numel()} u32 words is shorter than its {n} border words")
+        return stream[: 2 * n].clone().view(torch.int64).reshape(shape)
+    if len(shape) > 1:
+        return _decode_interior_fp64(stream, shape)
+    return _decode_blocks_fp64(stream, shape[0])
+
+
 # ------------------------------------------------------------ device API
 
 
 def compress_device(x: torch.Tensor):
-    """Compress a float32 (or int32 word) CUDA tensor of 1-3 dims on the card.
+    """Compress a float32/float64 (or int32/int64 word) CUDA tensor of 1-3
+    dims on the card.
 
     Returns ``(stream, length)``: ``stream`` an int32 tensor of
-    ``format.compressed_bound_u32(x.shape, 32)`` words, ``length`` an int32
-    device scalar, so the call makes no host sync. ``stream[:length]`` is
-    byte for byte the stream of ``ndzip_tpu.golden.compress``."""
+    ``format.compressed_bound_u32(x.shape, W)`` words (W = 32 or 64),
+    ``length`` its length in u32 words as an int32 device scalar, so the
+    call makes no host sync. ``stream[:length]`` is byte for byte the stream
+    of ``ndzip_tpu.golden.compress``."""
     words = as_words(x)
-    _check_cuda_words("x", words, dims=(1, 2, 3))
+    _check_cuda_words("x", words, dims=(1, 2, 3), dtype=words.dtype)
+    if words.dtype == torch.int64:
+        return _encode_fp64_device(words)
     return _encode_fp32_device(words)
 
 
 def decompress_device(stream: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
     """Decompress an int32 CUDA stream (``stream[:length]`` as it is, or the
-    whole buffer) into a tensor of ``shape`` (1-3 dims): float32 for float32,
-    int32 for 32-bit word types."""
+    whole buffer) into a tensor of ``shape`` (1-3 dims): float32/float64 for
+    those, int32/int64 for the word types."""
     out_dtype = output_dtype(shape, dtype)
     _check_cuda_words("stream", stream)
+    if out_dtype.itemsize == 8:
+        return _decode_fp64_device(stream, shape).view(out_dtype)
     return _decode_fp32_device(stream, shape).view(out_dtype)

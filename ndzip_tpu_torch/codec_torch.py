@@ -1,17 +1,22 @@
-"""Plain PyTorch versions of the fp32 codec, for grids of 1-3 dims.
+"""Plain PyTorch versions of the codec, for fp32 and fp64 grids of 1-3 dims.
 
 The counterpart of ``golden.gather_blocks``/``scatter_blocks``,
 ``block_transform``, ``encode_blocks_dense``, ``decode_blocks_dense`` and
-``golden.decompress``'s window logic, of ``codec_pallas._border_take``/
-``_border_place``, and of ``codec_xla.encode_fn``/``decode_fn`` for fp32.
-These are the reference the CUDA kernels of ``codec_cuda`` are held against
-on the card, and the path a tensor on the CPU takes. They run on any device,
-as plain tensor ops on int32 word views (see ``ops/bitops.py``).
+``golden.compress``/``decompress``, of ``codec_pallas._border_take``/
+``_border_place``, and of ``codec_xla.encode_fn``/``decode_fn``. These are
+the reference the CUDA kernels of ``codec_cuda`` are held against on the
+card, and the path a tensor on the CPU takes. They run on any device, as
+plain tensor ops on int32 words (fp32) or int64 words (fp64; see
+``ops/bitops.py``); the word width comes from the dtype.
 
-Stream layout (``ndzip_tpu/format.py``): ``num_hc`` header words of
-offset-after entries counted from the first body word, then each block's
-128 head words followed by its nonzero bit-transposed words, then the border
-elements verbatim, in ``format.border_slices`` order.
+Stream layout (``ndzip_tpu/format.py``), held as int32 words whatever the
+profile: ``num_hc`` u32 header entries, each the offset after a block
+counted in the profile's words from the first body word; for fp64 one zero
+u32 pad entry when ``num_hc`` is odd, so the body starts at u64 word
+``hw = format.header_words(num_hc, 64)``; then each block's ``4096 / W``
+head words (W the word width) followed by its nonzero bit-transposed words;
+then the border elements verbatim, one word each, in
+``format.border_slices`` order.
 """
 
 from __future__ import annotations
@@ -26,40 +31,39 @@ from ndzip_tpu import format as fmt
 from .ops import bitops
 
 HC = fmt.HC_SIZE                   # words per block
-HEADS = fmt.HC_SIZE // 32          # 32-word chunks, hence head words, per block
 
-_FP64_TODO = "fp64 is not ported yet (ROADMAP Queue 1 item 6)"
+#: the dtypes compress takes -> the word dtype the codec computes on
+_WORDS = {torch.float32: torch.int32, torch.int32: torch.int32,
+          torch.float64: torch.int64, torch.int64: torch.int64, torch.uint64: torch.int64}
 
 
-def _check_shape(shape) -> None:
-    """Refuse what the fp32 codec cannot hold: 0 or more than 3 dims, or a
-    stream too long for an int32 length."""
+def _check_shape(shape, word_bits: int) -> None:
+    """Refuse what the codec cannot hold: 0 or more than 3 dims, or a stream
+    whose length in u32 words does not fit an int32."""
     fmt.validate_shape(tuple(shape))
-    if fmt.compressed_bound_u32(tuple(shape), 32) >= 2**31:
+    if fmt.compressed_bound_u32(tuple(shape), word_bits) >= 2**31:
         raise ValueError(f"shape {tuple(shape)}: the stream length must fit an int32")
 
 
 def as_words(x: torch.Tensor) -> torch.Tensor:
-    """The contiguous int32 word view of a float32/int32 tensor of 1-3 dims.
-    fp64 raises NotImplementedError naming the ROADMAP item."""
-    if x.dtype in (torch.float64, torch.int64, torch.uint64):
-        raise NotImplementedError(f"dtype {x.dtype}: {_FP64_TODO}")
-    if x.dtype not in (torch.float32, torch.int32):
-        raise ValueError(f"compress takes float32 or int32 word tensors, got {x.dtype}")
-    _check_shape(x.shape)
-    return x.contiguous().view(torch.int32)
+    """The contiguous word view of a tensor of 1-3 dims: int32 for
+    float32/int32, int64 for float64/int64/uint64."""
+    if x.dtype not in _WORDS:
+        raise ValueError(f"compress takes float32/float64 or 32/64-bit word tensors, got {x.dtype}")
+    _check_shape(x.shape, _WORDS[x.dtype].itemsize * 8)
+    return x.contiguous().view(_WORDS[x.dtype])
 
 
 def output_dtype(shape, dtype) -> torch.dtype:
-    """Check a decode request; return the tensor dtype to view the words as
-    (float32 for float32, int32 for 32-bit word types)."""
+    """Check a decode request; return the tensor dtype to view the words as:
+    float32/float64 for those, int32/int64 for the word types."""
     name = str(dtype)[len("torch."):] if isinstance(dtype, torch.dtype) else np.dtype(dtype).name
-    if name in ("float64", "int64", "uint64"):
-        raise NotImplementedError(f"dtype {name}: {_FP64_TODO}")
-    if name not in ("float32", "int32", "uint32"):
-        raise ValueError(f"decompress gives float32 or 32-bit words, not {name}")
-    _check_shape(shape)
-    return torch.float32 if name == "float32" else torch.int32
+    out = {"float32": torch.float32, "int32": torch.int32, "uint32": torch.int32,
+           "float64": torch.float64, "int64": torch.int64, "uint64": torch.int64}.get(name)
+    if out is None:
+        raise ValueError(f"decompress gives float32/float64 or 32/64-bit words, not {name}")
+    _check_shape(shape, out.itemsize * 8)
+    return out
 
 
 # ------------------------------------------------------------ block geometry
@@ -92,7 +96,7 @@ def scatter_blocks(blocks: torch.Tensor, shape, out: torch.Tensor) -> None:
 
 
 def block_transform(blocks: torch.Tensor, dims: int = 1) -> torch.Tensor:
-    """Forward transform of (nb, 4096) int32 blocks: rotate-left-1, first
+    """Forward transform of (nb, 4096) int32/int64 blocks: rotate-left-1, first
     differences along each axis in ``format.FORWARD_AXIS_ORDER[dims]``
     (the first element of each line stays), complement-negative."""
     side = fmt.SIDE_LENGTH[dims]
@@ -110,7 +114,7 @@ def inverse_block_transform(blocks: torch.Tensor, dims: int = 1) -> torch.Tensor
     side = fmt.SIDE_LENGTH[dims]
     x = bitops.complement_negative(blocks).reshape((-1,) + (side,) * dims)
     for axis in reversed(fmt.FORWARD_AXIS_ORDER[dims]):
-        x = torch.cumsum(x, dim=axis + 1, dtype=torch.int32)
+        x = torch.cumsum(x, dim=axis + 1, dtype=x.dtype)
     return bitops.rotate_right_1(x.reshape(-1, HC))
 
 
@@ -182,24 +186,27 @@ def border_place(out: torch.Tensor, values: torch.Tensor, shape) -> None:
 # ------------------------------------------------------------ blocks
 
 
-def _bit_weights(device) -> torch.Tensor:
-    """Word i of a chunk -> head bit (31 - i), as int32 (bit 31 is -2**31)."""
-    return torch.ones(32, dtype=torch.int32, device=device) << (
-        31 - torch.arange(32, dtype=torch.int32, device=device))
+def _bit_weights(bits: int, dtype, device) -> torch.Tensor:
+    """Word i of a chunk -> head bit (W-1-i) of a W-bit word (the top bit is
+    the signed type's minimum)."""
+    return torch.ones(bits, dtype=dtype, device=device) << (
+        bits - 1 - torch.arange(bits, dtype=dtype, device=device))
 
 
 def encode_blocks_ref(blocks: torch.Tensor, dims: int = 1):
-    """Encode (nb, 4096) int32 blocks of a ``dims``-dimensional grid.
+    """Encode (nb, 4096) int32 (fp32) or int64 (fp64) blocks of a
+    ``dims``-dimensional grid.
 
     Returns ``(header, body, lengths)``: ``header`` (nb,) int32 offset-after
-    entries, ``body`` the blocks' compressed words back to back (what the
-    stream holds from word ``nb`` on), ``lengths`` (nb,) int64 words per
-    block."""
-    nb = blocks.shape[0]
-    t = bitops.transpose_bits(block_transform(blocks, dims).reshape(nb, HEADS, 32))
+    entries in the profile's words, ``body`` the blocks' compressed words back
+    to back in the blocks' dtype (what the stream holds from the first body
+    word on), ``lengths`` (nb,) int64 words per block."""
+    nb, bits = blocks.shape[0], bitops.word_bits(blocks)
+    heads_n = HC // bits
+    t = bitops.transpose_bits(block_transform(blocks, dims).reshape(nb, heads_n, bits))
     nz = t != 0
-    # distinct powers of two sum to their OR: head bit (31-i) <=> word i != 0
-    heads = (nz.to(torch.int32) * _bit_weights(blocks.device)).sum(-1, dtype=torch.int32)
+    # distinct powers of two sum to their OR: head bit (W-1-i) <=> word i != 0
+    heads = (nz.to(blocks.dtype) * _bit_weights(bits, blocks.dtype, blocks.device)).sum(-1, dtype=blocks.dtype)
     dense = torch.cat([heads, t.reshape(nb, HC)], dim=1)
     valid = torch.cat([torch.ones_like(heads, dtype=torch.bool), nz.reshape(nb, HC)], dim=1)
     lengths = valid.sum(dim=1)
@@ -207,26 +214,37 @@ def encode_blocks_ref(blocks: torch.Tensor, dims: int = 1):
     return header, dense[valid], lengths
 
 
-def decode_blocks_ref(stream: torch.Tensor, num_hc: int, dims: int = 1) -> torch.Tensor:
+def _stream_words(stream: torch.Tensor, word_bits: int) -> torch.Tensor:
+    """The int32 stream as the profile's words: itself for fp32, its int64
+    view for fp64 (an fp64 stream holds a whole number of u64 words)."""
+    if word_bits == 32:
+        return stream
+    if stream.numel() % 2:
+        raise ValueError(f"an fp64 stream holds a whole number of u64 words, got {stream.numel()} u32 words")
+    return stream.view(torch.int64)
+
+
+def decode_blocks_ref(stream: torch.Tensor, num_hc: int, dims: int = 1, word_bits: int = 32) -> torch.Tensor:
     """Decode the ``num_hc`` blocks of an int32 stream (header from word 0)
-    of a ``dims``-dimensional grid into (num_hc, 4096) int32 words. Reads
-    only the words each block owns, so whatever lies past the stream's
-    length does not matter."""
-    if stream.numel() < num_hc:
+    of a ``dims``-dimensional grid into (num_hc, 4096) words: int32 for
+    ``word_bits`` 32, int64 for 64. Reads only the words each block owns, so
+    whatever lies past the stream's length does not matter."""
+    if stream.numel() < fmt.header_u32_words(num_hc, word_bits):
         raise ValueError(f"stream of {stream.numel()} words cannot hold a {num_hc}-entry header")
     dev = stream.device
-    last = stream.numel() - 1
+    words = _stream_words(stream, word_bits)
+    heads_n, last = HC // word_bits, words.numel() - 1
     offsets = stream[:num_hc].to(torch.int64)
-    starts = num_hc + torch.cat([offsets.new_zeros(1), offsets[:-1]])            # (nb,)
-    heads = stream[(starts[:, None] + torch.arange(HEADS, device=dev)).clamp_(0, last)]
-    shifts = 31 - torch.arange(32, dtype=torch.int32, device=dev)
-    present = (heads[:, :, None] >> shifts) & 1                                 # (nb, 128, 32)
+    starts = fmt.header_words(num_hc, word_bits) + torch.cat([offsets.new_zeros(1), offsets[:-1]])
+    heads = words[(starts[:, None] + torch.arange(heads_n, device=dev)).clamp_(0, last)]
+    shifts = word_bits - 1 - torch.arange(word_bits, dtype=words.dtype, device=dev)
+    present = (heads[:, :, None] >> shifts) & 1                                 # (nb, heads_n, W)
     rank = torch.cumsum(present, dim=2, dtype=torch.int32) - present
     counts = present.sum(dim=2, dtype=torch.int32)
-    chunk_start = HEADS + torch.cumsum(counts, dim=1, dtype=torch.int32) - counts
+    chunk_start = heads_n + torch.cumsum(counts, dim=1, dtype=torch.int32) - counts
     src = starts[:, None, None] + (chunk_start[:, :, None] + rank)
-    words = torch.where(present != 0, stream[src.clamp_(0, last)], 0)
-    blocks = bitops.transpose_bits(words).reshape(num_hc, HC)
+    chunks = torch.where(present != 0, words[src.clamp_(0, last)], 0)
+    blocks = bitops.transpose_bits(chunks).reshape(num_hc, HC)
     return inverse_block_transform(blocks, dims)
 
 
@@ -234,33 +252,38 @@ def decode_blocks_ref(stream: torch.Tensor, num_hc: int, dims: int = 1) -> torch
 
 
 def encode(words: torch.Tensor, shape=None):
-    """Compress int32 words of ``shape`` (default: their own shape, 1-3
-    dims). Returns ``(stream, length)``: an int32 stream of
-    ``format.compressed_bound_u32(shape, 32)`` words, zero past ``length``,
-    and ``length`` as an int32 scalar tensor on the same device."""
+    """Compress int32 (fp32) or int64 (fp64) words of ``shape`` (default:
+    their own shape, 1-3 dims). Returns ``(stream, length)``: an int32 stream
+    of ``format.compressed_bound_u32(shape, W)`` words, zero past ``length``,
+    and ``length`` in u32 words as an int32 scalar tensor on the same
+    device."""
     shape = tuple(words.shape if shape is None else shape)
+    bits = bitops.word_bits(words)
     num_hc = fmt.num_hypercubes(shape)
     parts = []
     if num_hc:
         header, body, _ = encode_blocks_ref(gather_blocks(words, shape), len(shape))
-        parts += [header, body]
-    parts.append(border_take(words, shape))
+        pad = header.new_zeros(fmt.header_u32_words(num_hc, bits) - num_hc)  # fp64, odd num_hc
+        parts += [header, pad, body.view(torch.int32)]
+    parts.append(border_take(words, shape).reshape(-1).view(torch.int32))
     flat = torch.cat(parts)
-    stream = torch.zeros(fmt.compressed_bound_u32(shape, 32), dtype=torch.int32, device=words.device)
+    stream = torch.zeros(fmt.compressed_bound_u32(shape, bits), dtype=torch.int32, device=words.device)
     stream[: flat.numel()] = flat
     return stream, torch.tensor(flat.numel(), dtype=torch.int32, device=words.device)
 
 
-def decode(stream: torch.Tensor, shape) -> torch.Tensor:
-    """Decompress an int32 stream into int32 words of ``shape`` (1-3 dims)."""
+def decode(stream: torch.Tensor, shape, word_bits: int = 32) -> torch.Tensor:
+    """Decompress an int32 stream into words of ``shape`` (1-3 dims): int32
+    for ``word_bits`` 32, int64 for 64."""
     shape = tuple(shape)
     num_hc = fmt.num_hypercubes(shape)
-    out = torch.empty(shape, dtype=torch.int32, device=stream.device)
+    words = _stream_words(stream, word_bits)
+    out = torch.empty(shape, dtype=words.dtype, device=stream.device)
     border_start = torch.zeros((), dtype=torch.int64, device=stream.device)
     if num_hc:
-        scatter_blocks(decode_blocks_ref(stream, num_hc, len(shape)), shape, out)
-        border_start = num_hc + stream[num_hc - 1].to(torch.int64)
+        scatter_blocks(decode_blocks_ref(stream, num_hc, len(shape), word_bits), shape, out)
+        border_start = fmt.header_words(num_hc, word_bits) + stream[num_hc - 1].to(torch.int64)
     border = fmt.border_element_count(shape)
     if border:
-        border_place(out, stream[border_start + torch.arange(border, device=stream.device)], shape)
+        border_place(out, words[border_start + torch.arange(border, device=stream.device)], shape)
     return out

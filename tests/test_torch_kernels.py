@@ -1,15 +1,17 @@
-"""The four fp32 kernels of the port and the plain versions they are held to.
+"""The eight kernels of the port and the plain versions they are held to.
 
 On the CPU: the plain PyTorch versions (codec_torch.encode_blocks_ref,
-decode_blocks_ref, block_transform, the gather and border functions) against
-``golden``, ``format.border_slices`` and the JAX package's Pallas kernels in
-interpret mode, exact: B1 (_encode_blocks_fp32) and B2 (_decode_blocks_fp32)
-for 1D and the gather route of 2D, B3 (_encode_interior_fp32) and B4
-(_decode_interior_fp32) for tiled 2D/3D grids. On a card (marker ``cuda``,
-skipped elsewhere): the CUDA kernels against the plain versions and against
-``golden`` on chip_smoke.py's phase-3 cases, exact: the kernel's stream is
-golden's byte for byte, and the decode kernel gives back the input from
-golden's stream. Run those on the card
+decode_blocks_ref, block_transform, the gather and border functions, the
+bit transpose) against ``golden``, ``format.border_slices``, the JAX
+package's bit ops and its Pallas kernels in interpret mode, exact bits:
+B1 (_encode_blocks_fp32) and B2 (_decode_blocks_fp32) for 1D and the gather
+route of 2D, B3 (_encode_interior_fp32) and B4 (_decode_interior_fp32) for
+tiled 2D/3D grids, and their fp64 counterparts B5-B8 on int64 words, whose
+JAX versions take (lo, hi) u32 planes (``interop.planes_from_words``). On a
+card (marker ``cuda``, skipped elsewhere): the CUDA kernels against the
+plain versions and against ``golden`` on chip_smoke.py's phase-3 cases,
+exact: the kernel's stream is golden's byte for byte, and the decode kernel
+gives back the input from golden's stream. Run those on the card
 with ``NDZIP_TPU_TESTS_TPU=1 python -m pytest tests/test_torch_kernels.py -m cuda``
 (the variable keeps tests/conftest.py from setting up JAX, which the port's
 GPU machines need not have).
@@ -20,10 +22,13 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import kernel_cases, nd_kernel_cases  # noqa: E402
+from chip_smoke import fp64_kernel_cases, kernel_cases, nd_kernel_cases  # noqa: E402
 from ndzip_tpu import format as fmt  # noqa: E402
 from ndzip_tpu import golden  # noqa: E402
-from ndzip_tpu_torch import codec_cuda, codec_torch  # noqa: E402
+from ndzip_tpu.ops import bitops as ref_bitops  # noqa: E402
+from ndzip_tpu.ops import u64pair  # noqa: E402
+from ndzip_tpu_torch import codec_cuda, codec_torch, interop  # noqa: E402
+from ndzip_tpu_torch.ops import bitops  # noqa: E402
 
 HC = codec_torch.HC
 
@@ -277,5 +282,189 @@ def test_cuda_nd_kernels_match_plain(cuda, label):
                        codec_torch.decode_blocks_ref(junk, num_hc, dims))
     assert torch.equal(out, w)
     g_out = codec_cuda._decode_interior_fp32(torch.from_numpy(g_stream.view(np.int32)).to(cuda), shape)
+    torch.cuda.synchronize()
+    assert torch.equal(g_out, w)
+
+
+# ------------------------------------------------------------ fp64 (B5-B8)
+
+
+def words64_of(shape, seed):
+    """tests/test_pallas.py's fp64 data as uint64 words."""
+    data = np.random.default_rng(seed).standard_normal(shape)
+    flat = data.reshape(-1)
+    flat[:200] = 0
+    flat[300:340] = flat[299]
+    return data.view(np.uint64)
+
+
+def as_tensor64(words: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(words).view(np.int64))
+
+
+def pallas_stream2d(pallas, stream: np.ndarray) -> np.ndarray:
+    """A u32 stream zero-padded by the decoder's window, as 128-lane rows."""
+    lanes = pallas.LANES
+    rows = -(-(stream.size + 2 * pallas.WIN_ROWS * lanes) // lanes)
+    padded = np.zeros(rows * lanes, np.uint32)
+    padded[: stream.size] = stream
+    return padded.reshape(rows, lanes)
+
+
+def u64_starts(stream: np.ndarray, nb: int) -> np.ndarray:
+    """Block starts in u64 words including the header, as
+    codec_pallas._decode_fp64_device builds them."""
+    offsets = stream[:nb].astype(np.int32)
+    return fmt.header_words(nb, 64) + np.concatenate([[0], offsets[:-1]]).astype(np.int32)
+
+
+def test_words_and_planes_match_u64pair():
+    words = np.random.default_rng(40).integers(0, 2**64, (3, 5, 7), dtype=np.uint64)
+    words.reshape(-1)[:3] = [0, 2**63, 2**64 - 1]
+    lo, hi = u64pair.split(words)
+    t = interop.words_from_planes(lo, hi)
+    assert t.dtype == torch.int64 and t.shape == words.shape
+    assert np.array_equal(t.numpy().view(np.uint64), u64pair.join(lo, hi))
+    got_lo, got_hi = interop.planes_from_words(t)
+    assert np.array_equal(got_lo, lo) and np.array_equal(got_hi, hi)
+    assert got_lo.dtype == np.uint32 and got_lo.shape == words.shape
+
+
+@pytest.mark.parametrize("dims", [1, 2, 3])
+def test_block_transform_int64_matches_golden(dims):
+    blocks = np.random.default_rng(50 + dims).integers(0, 2**64, (5, HC), dtype=np.uint64)
+    blocks[0] = 0
+    blocks[1] = blocks[1, 0]  # a constant block
+    blocks[2, :64] = [0, 1, 2**63 - 1, 2**63, 2**63 + 1, 2**64 - 2, 2**64 - 1] * 9 + [7]
+    ours = codec_torch.block_transform(as_tensor64(blocks), dims).numpy().view(np.uint64)
+    assert np.array_equal(ours, golden.block_transform(blocks, dims))
+    back = codec_torch.inverse_block_transform(torch.from_numpy(ours.view(np.int64)), dims)
+    assert np.array_equal(back.numpy().view(np.uint64), blocks)
+    inv = codec_torch.inverse_block_transform(as_tensor64(blocks), dims).numpy().view(np.uint64)
+    assert np.array_equal(inv, golden.inverse_block_transform(blocks, dims))
+
+
+def test_transpose_bits_int64_matches_jax_package():
+    chunks = np.random.default_rng(60).integers(0, 2**64, (3, 64, 64), dtype=np.uint64)
+    chunks[0] &= np.uint64(0x8000_0000_0000_0001)  # sparse rows: the top and bottom bits
+    chunks[1, ::3] = 0
+    got = bitops.transpose_bits(as_tensor64(chunks))
+    assert np.array_equal(got.numpy().view(np.uint64), ref_bitops.transpose_bits(chunks, np))
+    assert torch.equal(bitops.transpose_bits(got), as_tensor64(chunks))  # an involution
+
+
+@pytest.mark.parametrize("nb", [8, 13])
+def test_encode_blocks_ref_fp64_matches_pallas(pallas, nb):
+    """The plain fp64 encode against B5, fed the words as (lo, hi) planes."""
+    blocks = words64_of((nb, HC), seed=nb)
+    header, body, lengths = codec_torch.encode_blocks_ref(as_tensor64(blocks))
+
+    G = pallas.G_ENC
+    padded = torch.zeros((-(-nb // G) * G, HC), dtype=torch.int64)
+    padded[:nb] = as_tensor64(blocks)
+    lo, hi = interop.planes_from_words(padded)
+    body2d, hdr2d = pallas._encode_blocks_fp64(lo, hi, 1, nb)
+    jax_header = np.asarray(hdr2d)[:, :G].reshape(-1)[:nb]
+    hw, body_total = fmt.header_words(nb, 64), int(jax_header[-1])
+    jax_body = np.asarray(body2d).reshape(-1)[2 * hw: 2 * (hw + body_total)]
+
+    assert np.array_equal(header.numpy().view(np.uint32), jax_header)
+    assert np.array_equal(body.numpy().view(np.uint32), jax_body)
+    assert np.array_equal(np.cumsum(lengths.numpy()), jax_header)
+
+
+@pytest.mark.parametrize("nb", [8, 13])
+def test_decode_blocks_ref_fp64_matches_pallas(pallas, nb):
+    """The plain fp64 decode against B7, whose starts count u64 words from
+    the stream's start, padded to a multiple of G_DEC64 with the last one."""
+    blocks = words64_of((nb, HC), seed=100 + nb)
+    stream, _ = golden.compress(blocks.reshape(-1).view(np.float64))
+    ours = codec_torch.decode_blocks_ref(torch.from_numpy(stream.view(np.int32)), nb, 1, 64)
+
+    starts = u64_starts(stream, nb)
+    nb_pad = -(-nb // pallas.G_DEC64) * pallas.G_DEC64
+    starts = np.concatenate([starts, np.full(nb_pad - nb, starts[-1], np.int32)])
+    lo, hi = pallas._decode_blocks_fp64(pallas_stream2d(pallas, stream), starts, 1, nb)
+    theirs = interop.words_from_planes(np.asarray(lo)[:nb], np.asarray(hi)[:nb])
+
+    assert torch.equal(ours, theirs)
+    assert np.array_equal(ours.numpy().view(np.uint64), blocks)
+
+
+@pytest.mark.parametrize("shape", [(128, 512), (16, 32, 128)])
+def test_encode_nd_fp64_matches_pallas_interior(pallas, shape):
+    """The plain encode of a tiled fp64 grid against B6."""
+    words = words64_of(shape, seed=len(shape))
+    dims, num_hc = len(shape), fmt.num_hypercubes(shape)
+    header, body, _ = codec_torch.encode_blocks_ref(
+        codec_torch.gather_blocks(as_tensor64(words), shape), dims)
+
+    G = pallas._g_tiled(shape, dims, pallas.G_ENC)
+    lo, hi = u64pair.split(words)
+    body2d, hdr2d = pallas._encode_interior_fp64(lo, hi, shape, num_hc, G)
+    jax_header = np.asarray(hdr2d)[:, :G].reshape(-1)[:num_hc]
+    hw, body_total = fmt.header_words(num_hc, 64), int(jax_header[-1])
+    assert np.array_equal(header.numpy().view(np.uint32), jax_header)
+    assert np.array_equal(body.numpy().view(np.uint32),
+                          np.asarray(body2d).reshape(-1)[2 * hw: 2 * (hw + body_total)])
+
+
+@pytest.mark.parametrize("shape", [(128, 512), (16, 32, 128)])
+def test_decode_nd_fp64_matches_pallas_interior(pallas, shape):
+    """The plain decode of a tiled fp64 grid against B8, whose starts come in
+    padded-grid order (_padded_block_ids)."""
+    words = words64_of(shape, seed=10 + len(shape))
+    stream, _ = golden.compress(words.view(np.float64))
+    dims, num_hc = len(shape), fmt.num_hypercubes(shape)
+    out = torch.empty(shape, dtype=torch.int64)
+    codec_torch.scatter_blocks(
+        codec_torch.decode_blocks_ref(torch.from_numpy(stream.view(np.int32)), num_hc, dims, 64), shape, out)
+
+    G, gx = pallas._g_tiled_padded(shape, dims, pallas.G_DEC64)
+    ids = pallas._padded_block_ids(shape, dims, G, gx)
+    lo, hi = pallas._decode_interior_fp64(pallas_stream2d(pallas, stream), u64_starts(stream, num_hc)[ids],
+                                          shape, num_hc, G, gx)
+    assert torch.equal(out, interop.words_from_planes(lo, hi))
+    assert np.array_equal(out.numpy().view(np.uint64), words)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(fp64_kernel_cases()))
+def test_cuda_fp64_kernels_match_plain(cuda, label):
+    data = fp64_kernel_cases()[label]
+    shape, dims = data.shape, data.ndim
+    num_hc = fmt.num_hypercubes(shape)
+    w = torch.from_numpy(data.view(np.int64)).to(cuda)
+    ref_stream, ref_length = codec_torch.encode(w)
+    L = int(ref_length)
+    g_stream, g_length = golden.compress(data)
+    assert L == 2 * g_length
+    junk = ref_stream.clone()
+    junk[L:] = -1
+    if num_hc == 0:  # all border: the glue copies, no kernel runs
+        stream, length = codec_cuda.compress_device(w)
+        assert int(length) == L and torch.equal(stream, ref_stream)
+        assert torch.equal(codec_cuda.decompress_device(junk, shape, torch.int64), w)
+        return
+
+    if dims == 1:
+        encode, decode = codec_cuda._encode_blocks_fp64, lambda s: codec_cuda._decode_blocks_fp64(s, shape[0])
+    else:
+        encode, decode = codec_cuda._encode_interior_fp64, lambda s: codec_cuda._decode_interior_fp64(s, shape)
+    stream, length = encode(w)
+    header, body, _ = codec_torch.encode_blocks_ref(codec_torch.gather_blocks(w, shape), dims)
+    torch.cuda.synchronize()
+    hw2 = 2 * fmt.header_words(num_hc, 64)
+    assert int(length) == L
+    assert torch.equal(stream[:num_hc], header)
+    assert torch.equal(stream[hw2: hw2 + 2 * int(header[-1])].view(torch.int64), body)
+    assert stream[:L].cpu().numpy().view(np.uint32).tobytes() == g_stream.tobytes()
+
+    out = decode(junk)
+    torch.cuda.synchronize()
+    assert torch.equal(codec_torch.gather_blocks(out, shape),
+                       codec_torch.decode_blocks_ref(junk, num_hc, dims, 64))
+    assert torch.equal(out, w)
+    g_out = decode(torch.from_numpy(g_stream.view(np.int32)).to(cuda))
     torch.cuda.synchronize()
     assert torch.equal(g_out, w)

@@ -1,5 +1,6 @@
 """The port's bit operations (ndzip_tpu_torch/ops/bitops.py) against the
-JAX package's (ndzip_tpu/ops/bitops.py) on random uint32 words, exact."""
+JAX package's (ndzip_tpu/ops/bitops.py) on random uint32 and uint64 words,
+exact. The 64-bit bit transpose is in test_torch_kernels.py."""
 
 import numpy as np
 import pytest
@@ -48,3 +49,29 @@ def test_transpose_bits_matches_jax_package():
 def test_transpose_bits_rejects_wrong_chunk_width():
     with pytest.raises(ValueError):
         bitops.transpose_bits(torch.zeros(4, 16, dtype=torch.int32))
+    with pytest.raises(ValueError):
+        bitops.transpose_bits(torch.zeros(4, 32, dtype=torch.int64))
+    with pytest.raises(TypeError):
+        bitops.transpose_bits(torch.zeros(4, 32, dtype=torch.int16))
+
+
+EDGES64 = np.array([0, 1, 2**32 - 1, 2**32, 2**63 - 1, 2**63, 2**63 + 1, 2**64 - 2, 2**64 - 1], np.uint64)
+
+
+def random_words64(n, seed):
+    return np.concatenate([EDGES64, np.random.default_rng(seed).integers(0, 2**64, n, dtype=np.uint64)])
+
+
+@pytest.mark.parametrize("name", ["rotate_left_1", "rotate_right_1", "complement_negative"])
+def test_word_op_64_matches_jax_package(name):
+    words = random_words64(4096, seed=4)
+    got = getattr(bitops, name)(torch.from_numpy(words.view(np.int64)))
+    assert got.dtype == torch.int64
+    assert np.array_equal(got.numpy().view(np.uint64), getattr(ref, name)(words, np))
+
+
+@pytest.mark.parametrize("k", [0, 1, 31, 32, 33, 63])
+def test_logical_shift_right_matches_uint64(k):
+    words = random_words64(4096, seed=5)
+    got = bitops.logical_shift_right(torch.from_numpy(words.view(np.int64)), k)
+    assert np.array_equal(got.numpy().view(np.uint64), words >> np.uint64(k))

@@ -1,6 +1,7 @@
 """The port's package as a whole: it imports no JAX, its kernel build has no
-fallback, its CUDA entry points refuse CPU tensors, and fp64, which the port
-does not cover yet, raises NotImplementedError in 1-3 dims."""
+fallback, its CUDA entry points refuse CPU tensors, fp64 round-trips in
+1-3 dims through the same entry points as fp32, and bad inputs raise
+ValueError."""
 
 import subprocess
 import sys
@@ -12,7 +13,8 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import ndzip_tpu_torch as nt  # noqa: E402
-from ndzip_tpu_torch import _build, codec_cuda  # noqa: E402
+from ndzip_tpu import golden  # noqa: E402
+from ndzip_tpu_torch import _build, codec_cuda, interop  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 MODULES = ["ndzip_tpu_torch", "ndzip_tpu_torch._build", "ndzip_tpu_torch.codec_cuda",
@@ -71,16 +73,31 @@ def test_cuda_entry_points_refuse_cpu_tensors():
         codec_cuda.decompress_device(torch.zeros(10, dtype=torch.int32), (64, 64))
     with pytest.raises(ValueError, match="CUDA"):
         codec_cuda._decode_interior_fp32(torch.zeros(10, dtype=torch.int32), (16, 16, 16))
+    with pytest.raises(ValueError, match="CUDA"):
+        codec_cuda.compress_device(torch.zeros(4096 * 2, dtype=torch.float64))
+    with pytest.raises(ValueError, match="CUDA"):
+        codec_cuda._encode_blocks_fp64(torch.zeros(4096 * 2, dtype=torch.int64))
+    with pytest.raises(ValueError, match="CUDA"):
+        codec_cuda.decompress_device(torch.zeros(10, dtype=torch.int32), (4096 * 2,), torch.float64)
+    with pytest.raises(ValueError, match="CUDA"):
+        codec_cuda._decode_blocks_fp64(torch.zeros(10, dtype=torch.int32), 4096 * 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        codec_cuda._encode_interior_fp64(torch.zeros(16, 16, 16, dtype=torch.int64))
+    with pytest.raises(ValueError, match="CUDA"):
+        codec_cuda._decode_interior_fp64(torch.zeros(10, dtype=torch.int32), (16, 16, 16))
     assert codec_cuda.LAUNCHES == before
 
 
 @pytest.mark.parametrize("shape", [(4096,), (64, 64), (16, 16, 16)], ids=["fp64", "2d", "3d"])
-def test_other_profiles_are_not_implemented(shape):
-    """fp64 in 1, 2 and 3 dims (ROADMAP Queue 1 item 6)."""
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        nt.compress_device(torch.zeros(shape, dtype=torch.float64))
-    with pytest.raises(NotImplementedError, match="ROADMAP Queue 1 item 6"):
-        nt.decompress_device(torch.zeros(10, dtype=torch.int32), shape, np.float64)
+def test_fp64_round_trips_on_the_cpu(shape):
+    """fp64 in 1, 2 and 3 dims, one whole block each: the plain path's stream
+    is golden's, and the round trip is bit-exact."""
+    data = np.random.default_rng(len(shape)).standard_normal(shape)
+    x = torch.from_numpy(data)
+    stream, length = nt.compress_device(x)
+    assert interop.stream_to_numpy(stream, length).tobytes() == golden.compress(data)[0].tobytes()
+    out = nt.decompress_device(stream[:length], shape, np.float64)
+    assert out.dtype == torch.float64 and torch.equal(out.view(torch.int64), x.view(torch.int64))
 
 
 def test_bad_inputs_raise_value_error():
@@ -89,4 +106,10 @@ def test_bad_inputs_raise_value_error():
     with pytest.raises(ValueError):
         nt.compress_device(torch.zeros(2, 2, 2, 2))
     with pytest.raises(ValueError):
+        nt.compress_device(torch.zeros(2, 2, 2, 2, dtype=torch.float64))
+    with pytest.raises(ValueError):
         nt.decompress_device(torch.zeros(10, dtype=torch.int32), (10,), np.float16)
+    with pytest.raises(ValueError):
+        nt.decompress_device(torch.zeros(10, dtype=torch.int32), (2, 2, 2, 2), np.float64)
+    with pytest.raises(ValueError):  # an fp64 stream of an odd number of u32 words
+        nt.decompress_device(torch.zeros(4097 * 2 + 1, dtype=torch.int32), (4096,), np.float64)
