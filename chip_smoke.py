@@ -28,7 +28,32 @@ line each, and any failure raises and exits nonzero:
 5. timing with CUDA events: median of 10 runs after a warm-up, compress and
    decompress against the plain version and a device-to-device ``copy_``,
    per size and cell; then each kernel's mean device time per call from
-   ``torch.profiler``.
+   ``torch.profiler``;
+6. the entry points on the card: ``api.Offloader(..., "cuda",
+   timing_mode="device")`` on the 2^24 fp32 and 2^23 fp64 cells (streams
+   equal to the plain version's, bit-exact round trips, the cell's encode
+   and decode kernels launched, counted from 0 just before, device times
+   with the host's enqueue left out, each > 0, under the call's wall time
+   and within DEVICE_TIMING_BAND of ``Offloader.measure``'s median, which
+   may not exceed phase 5's event median),
+   ``python -m ndzip_tpu_torch.cli -e cuda`` round trips through files on
+   CESM 1800x3600 fp32 and a bordered fp64 3D grid (the .ndz files equal the
+   plain version's streams, the outputs the inputs), and
+   ``python -m ndzip_tpu_torch.warm`` on 2^24 and 1800x3600 in both dtypes,
+   which must find the library phase 2 built;
+7. ``ubench.stage_benchmarks`` at 64 MiB for fp32 in 1, 2 and 3 dims and fp64
+   in 3, one line per stage with the card, with the stage kernels' launch
+   counts over it, counted from 0 just before it; then each stage kernel
+   against its plain version on ubench's working sets, exact, then timed:
+   P1 and P2 at 2^24 (4096 blocks), P3 at 256^3 and 4096x4096 fp32 and
+   192^3 fp64 (scatters into grids of -1s).
+
+Phase 3 also holds the five stage kernels of ``stages.py`` to their plain
+versions, exact: the block gather and scatter on every 2D/3D case of both
+dtypes (scatter into a grid of -1s, so untouched words show), the
+placement stages on the whole blocks of the fp32 1D cases, and the keep
+mask on dev/mosaic_repro.py's input, on random words and on the dense rows
+of 8 blocks.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
@@ -39,15 +64,17 @@ from __future__ import annotations
 
 import json
 import math
-import statistics
 import subprocess
 import sys
+import tempfile
 import time
+from pathlib import Path
 
 import numpy as np
 
 REPS = 10
 SEED = 0
+DEVICE_TIMING_BAND = (0.8, 1.25)  # one Offloader device reading against measure()'s median
 
 
 def fail(what: str):
@@ -245,7 +272,7 @@ def main() -> int:
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
 
     import ndzip_tpu_torch as nt
-    from ndzip_tpu_torch import _build, codec_cuda, codec_torch
+    from ndzip_tpu_torch import _build, api, codec_cuda, codec_torch, stages, ubench, utils
     from ndzip_tpu_torch.codec_torch import HC
 
     dev = torch.device("cuda", 0)
@@ -253,12 +280,10 @@ def main() -> int:
 
     # ---- 1. device
     name = torch.cuda.get_device_name(0)
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True, check=True).stdout.strip()
-    card = smi.splitlines()[0].strip()
+    card = utils.card()  # nvidia-smi's name and power limit
     print(f"[1 device] {name}; torch {torch.__version__}; CUDA {torch.version.cuda}; "
           f"cards: {torch.cuda.device_count()}", flush=True)
-    print(smi, flush=True)
+    print(card, flush=True)
 
     # ---- 2. build
     t0 = time.perf_counter()
@@ -380,6 +405,58 @@ def main() -> int:
         print(f"[3 kernels fp64] {label}: blocks={num_hc} length={L} u32 words, {enc} == plain, "
               f"{dec} == plain == input (0 differing words)", flush=True)
 
+    # ---- 3, the stage kernels against their plain versions, exact
+    serr = dict.fromkeys(stages.LAUNCHES, 0)
+
+    def hold(key, kernel_out, plain_out, what):
+        e = max_abs_err(kernel_out, plain_out)
+        serr[key] = max(serr[key], e)
+        if e:
+            fail(f"stage kernel {key} != plain on {what} (max_abs_err {e})")
+
+    grids = list(nd_kernel_cases().items())
+    grids += [(f"fp64 {label}", data) for label, data in fp64_kernel_cases().items() if data.ndim > 1]
+    for label, data in grids:
+        w = cuda_words(data)
+        shape, side = tuple(w.shape), {2: 64, 3: 16}[w.dim()]
+        if math.prod(e // side for e in shape) == 0:
+            continue  # all border: the stage kernels take grids with a whole block
+        suffix = "64" if w.dtype == torch.int64 else ""
+        blocks = codec_torch.gather_blocks(w, shape)
+        hold("gather_blocks_nd" + suffix, stages.gather_blocks_nd(w), blocks, label)
+        out, ref = torch.full_like(w, -1), torch.full_like(w, -1)
+        stages.scatter_blocks_nd(blocks, out)
+        codec_torch.scatter_blocks(blocks, shape, ref)
+        hold("scatter_blocks_nd" + suffix, out, ref, label)
+        print(f"[3 stages] {label}: {blocks.shape[0]} blocks, gather_blocks_nd{suffix} == plain, "
+              f"scatter_blocks_nd{suffix} into -1s == plain", flush=True)
+    for label, data in kernel_cases().items():
+        w = cuda_words(data)
+        blocks = w[: w.numel() // HC * HC].reshape(-1, HC)
+        hold("placement_floor", stages.placement_floor(blocks), stages.placement_floor_ref(blocks), label)
+        hold("placement_compute", stages.placement_compute(blocks), stages.placement_compute_ref(blocks), label)
+        print(f"[3 stages] {label}: {blocks.shape[0]} blocks, placement_floor == plain, "
+              f"placement_compute == plain", flush=True)
+    rng = np.random.default_rng(SEED)
+    masks = [("dev/mosaic_repro.py's ones",
+              torch.ones((stages.P2_ROWS, stages.LANES), dtype=torch.int32, device=dev), stages.P2_LIMIT)]
+    for fill in (0, 37, 128):
+        x = rng.integers(-2**31, 2**31, (stages.P2_ROWS, stages.LANES), dtype=np.int64).astype(np.int32)
+        x[rng.random(x.shape) < 0.5] = 0
+        x[0, 0] = fill
+        masks.append((f"random words, fill {fill}", torch.from_numpy(x).to(dev), stages.P2_LIMIT))
+    blocks = cuda_words(kernel_cases()["4096*8"]).reshape(-1, HC)
+    nb = blocks.shape[0]
+    dense, valid, _ = codec_torch.encode_blocks_dense(blocks, 1)
+    masks.append((f"[fill row; dense rows of {nb} blocks]", stages.staging(dense, 37), 1 + stages.ROWS * nb))
+    for label, x, limit in masks:
+        m = stages.keep_mask(x, limit)
+        hold("keep_mask", m, stages.keep_mask_ref(x, limit), label)
+        print(f"[3 stages] keep_mask on {label} ({x.shape[0]}x{x.shape[1]}, limit {limit}) == plain, "
+              f"{int(m.sum())} words kept", flush=True)
+    if not torch.equal(m[1:].reshape(nb, -1).bool(), valid):
+        fail("keep_mask on the dense rows != encode_blocks_dense's valid")
+
     def kernel_keys(x):
         """The LAUNCHES keys of the encode and decode kernels that take ``x``."""
         suffix = ("64" if x.element_size() == 8 else "") + ("_nd" if x.dim() > 1 else "")
@@ -434,18 +511,7 @@ def main() -> int:
 
     # ---- 5. timing with CUDA events
     def median_ms(fn) -> float:
-        fn()
-        fn()
-        torch.cuda.synchronize()
-        times = []
-        for _ in range(REPS):
-            a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            a.record()
-            fn()
-            b.record()
-            b.synchronize()
-            times.append(a.elapsed_time(b))
-        return statistics.median(times)
+        return utils.device_time_ms(fn, REPS)
 
     def time_cell(x, label):
         """Phase 5 for one size or cell; returns the timed rows."""
@@ -472,8 +538,9 @@ def main() -> int:
                   f"{kernel_breakdown(fn)} on {card}", flush=True)
         return rows, sl
 
-    kernel_ms = {}
+    kernel_ms, event_ms = {}, {}  # event_ms: phase 5's rows of the cells phase 6 runs again
     rows, sl = time_cell(x24, f"n={n24}")
+    event_ms["2^24"] = rows
     w24 = x24.view(torch.int32)
     kernel_ms["encode"] = (median_ms(lambda: codec_cuda._encode_blocks_fp32(w24)), rows["compress plain"])
     kernel_ms["decode"] = (median_ms(lambda: codec_cuda._decode_blocks_fp32(sl, n24)),
@@ -540,6 +607,7 @@ def main() -> int:
               f"round trip bit-exact; launches {counts}", flush=True)
         del s, y
         rows, sl = time_cell(x, label)
+        event_ms[label] = rows
         w = x.view(torch.int64)
         if x.dim() == 1:
             kernel_ms[enc] = (median_ms(lambda: codec_cuda._encode_blocks_fp64(w)), rows["compress plain"])
@@ -551,6 +619,142 @@ def main() -> int:
                               rows["decompress plain"])
         del x, w, sl
         torch.cuda.empty_cache()
+
+    # ---- 6. the entry points on the card: Offloader, CLI, warm
+    # Two calls each: the first after empty_cache() also pays the caching allocator's cudaMalloc.
+    # Device timing leaves the host's time to enqueue out, so each reading must lie within
+    # DEVICE_TIMING_BAND of measure()'s median of the same device time, and that median may not
+    # exceed phase 5's event median, which adds the host's gaps between launches.
+    for label, data in (("2^24", bench_data(n24)), ("fp64 2^23", bench_data64(2**23))):
+        off = api.Offloader(data.dtype, data.ndim, "cuda", timing_mode="device")
+        w = cuda_words(data)
+        enc, dec = kernel_keys(w)
+        ps, pl = codec_torch.encode(w)
+        plain = ps[: int(pl)].cpu().numpy().tobytes()
+        del ps, w
+        wdt = np.uint32 if data.itemsize == 4 else np.uint64
+        calls = []
+        torch.cuda.synchronize()
+        for k in codec_cuda.LAUNCHES:
+            codec_cuda.LAUNCHES[k] = 0
+        for _ in range(2):
+            (s, words), wall_c = utils.wall_time_ns(lambda: off.compress(data))
+            c_ns = off.timing.compress_ns
+            out, wall_d = utils.wall_time_ns(lambda: off.decompress(s, data.shape))
+            d_ns = off.timing.decompress_ns
+            if s.tobytes() != plain:
+                fail(f"Offloader {label}: stream != the plain version's")
+            if not np.array_equal(out.view(wdt), data.view(wdt)):
+                fail(f"Offloader {label}: round trip is not bit-exact")
+            if not (0 < c_ns <= wall_c and 0 < d_ns <= wall_d):
+                fail(f"Offloader {label}: kernel times {c_ns}, {d_ns} ns not in (0, wall {wall_c}, {wall_d} ns]")
+            calls.append((c_ns, wall_c, d_ns, wall_d))
+        counts = dict(codec_cuda.LAUNCHES)
+        if counts[enc] == 0 or counts[dec] == 0:
+            fail(f"Offloader {label} did not launch {enc} and {dec}: {counts}")
+        rows = event_ms[label]
+        med = off.measure(data, REPS)
+        lo, hi = DEVICE_TIMING_BAND
+        for c_ns, _, d_ns, _ in calls:
+            if not (lo * med.compress_ns <= c_ns <= hi * med.compress_ns
+                    and lo * med.decompress_ns <= d_ns <= hi * med.decompress_ns):
+                fail(f"Offloader {label}: device times {c_ns}, {d_ns} ns not within {lo}-{hi} times "
+                     f"measure()'s medians {med.compress_ns}, {med.decompress_ns} ns")
+        if med.compress_ns > rows["compress"] * 1e6 or med.decompress_ns > rows["decompress"] * 1e6:
+            fail(f"Offloader {label}: measure()'s medians {med.compress_ns}, {med.decompress_ns} ns exceed "
+                 f"phase 5's event medians {rows['compress']:.4f}, {rows['decompress']:.4f} ms")
+        print(f"[6 offloader] {label}: stream == plain ({words} words), round trip bit-exact, "
+              f"launches {enc} {counts[enc]}, {dec} {counts[dec]}; device timing (host's enqueue left out), "
+              + "; ".join(f"call {i + 1}: compress_ns {c} (wall {wc} ns), decompress_ns {d} (wall {wd} ns)"
+                          for i, (c, wc, d, wd) in enumerate(calls))
+              + f"; measure() medians of {REPS}: compress_ns {med.compress_ns}, decompress_ns "
+              f"{med.decompress_ns}; phase 5 event medians (host gaps in) compress {rows['compress']:.4f} ms, "
+              f"decompress {rows['decompress']:.4f} ms on {card}", flush=True)
+        del out
+    torch.cuda.empty_cache()
+
+    root = Path(__file__).resolve().parent
+    lib_mtime = lib_path.stat().st_mtime_ns
+    with tempfile.TemporaryDirectory() as tmp:
+        cli_cases = []
+        for i, (label, data) in enumerate((
+                ("CESM 1800x3600", cesm_data()),
+                ("fp64 3d border (17,32,129)", fp64_kernel_cases()["3d odd minor extent (17,32,129)"]))):
+            raw, ndz, back = (Path(tmp) / f"{i}.{ext}" for ext in ("raw", "ndz", "back"))
+            raw.write_bytes(data.tobytes())
+            flags = ["-n", *map(str, data.shape), "-t", "float" if data.itemsize == 4 else "double", "-e", "cuda"]
+            cli_cases.append((label, data, raw, ndz, back, flags))
+        t0 = time.perf_counter()
+        warm = subprocess.run([sys.executable, "-m", "ndzip_tpu_torch.warm", "--shapes", "16777216", "1800x3600",
+                               "--dtype", "float", "double"], cwd=root, capture_output=True, text=True, timeout=300)
+        if warm.returncode or "found" not in warm.stderr or lib_path.name not in warm.stderr \
+                or lib_path.stat().st_mtime_ns != lib_mtime:
+            fail(f"warm exited {warm.returncode} or did not find the library {lib_path.name}:\n{warm.stderr}")
+        print(f"[6 warm] exit 0, found {lib_path.name} (not rebuilt): "
+              f"{' | '.join(warm.stderr.strip().splitlines())}", flush=True)
+        for label, data, raw, ndz, back, flags in cli_cases:
+            c, d = (subprocess.run([sys.executable, "-m", "ndzip_tpu_torch.cli", *flags, *io], cwd=root,
+                                   capture_output=True, text=True, timeout=300)
+                    for io in (["-i", str(raw), "-o", str(ndz)], ["-d", "-i", str(ndz), "-o", str(back)]))
+            if c.returncode or d.returncode:
+                fail(f"cli -e cuda on {label} exited {c.returncode}, {d.returncode}:\n{c.stderr}\n{d.stderr}")
+            ps, pl = codec_torch.encode(cuda_words(data))
+            if ndz.read_bytes() != ps[: int(pl)].cpu().numpy().tobytes():
+                fail(f"cli -e cuda on {label}: the .ndz file != the plain version's stream")
+            if back.read_bytes() != raw.read_bytes():
+                fail(f"cli -e cuda on {label}: the decompressed file != the input")
+            print(f"[6 cli] {label}: .ndz == plain stream ({ndz.stat().st_size} bytes), decompressed == input; "
+                  f"{c.stderr.strip()} | {d.stderr.strip()}", flush=True)
+        print(f"[6 entry points] warm and the CLI round trips took {time.perf_counter() - t0:.1f} s of wall "
+              f"time", flush=True)
+
+    # ---- 7. ubench: every stage at 64 MiB; the stage kernels' launches counted over it
+    for k in stages.LAUNCHES:
+        stages.LAUNCHES[k] = 0
+    for dims, dtype in ((1, "float"), (2, "float"), (3, "float"), (3, "double")):
+        shape = ubench.working_shape(64, dims, dtype)
+        for stage, nbytes, run in ubench.stage_benchmarks(shape, dims, dtype, dev):
+            ms = run()
+            print(f"[7 ubench] {dims}D {dtype} {shape} {stage}: {ms:.4f} ms/rep, "
+                  f"{nbytes / (ms * 1e-3) / 1e9:.1f} GB/s on {card}", flush=True)
+    torch.cuda.synchronize()
+    stage_launches = dict(stages.LAUNCHES)
+    if not all(stage_launches.values()):
+        fail(f"ubench did not launch every stage kernel: {stage_launches}")
+    print(f"[7 ubench] stage kernel launches {stage_launches}", flush=True)
+    torch.cuda.empty_cache()
+
+    # each stage kernel against its plain version on ubench's working sets: exact (scatters into
+    # grids of -1s, so that untouched words show), then timed with CUDA events, median of REPS.
+    # The JSON line takes P1/P2 at 2^24 and P3 at 256^3 fp32 and 192^3 fp64.
+    b24 = cuda_words(ubench.stage_data(ubench.working_shape(64, 1))).reshape(-1, HC)
+    staged, limit = stages.staging(stages.placement_compute_ref(b24)), 1 + stages.ROWS * b24.shape[0]
+    timed = [("placement_floor", "2^24", lambda: stages.placement_floor(b24),
+              lambda: stages.placement_floor_ref(b24)),
+             ("placement_compute", "2^24", lambda: stages.placement_compute(b24),
+              lambda: stages.placement_compute_ref(b24)),
+             ("keep_mask", f"the 2^24 dense rows {tuple(staged.shape)}", lambda: stages.keep_mask(staged, limit),
+              lambda: stages.keep_mask_ref(staged, limit))]
+    for dims, dtype in ((3, "float"), (2, "float"), (3, "double")):
+        g = cuda_words(ubench.stage_data(ubench.working_shape(64, dims, dtype), dtype))
+        blocks, yard = codec_torch.gather_blocks(g, g.shape), torch.empty_like(g)
+        out_k, out_p = torch.full_like(g, -1), torch.full_like(g, -1)
+        suffix, what = ("64" if dtype == "double" else ""), f"{'x'.join(map(str, g.shape))} {g.dtype}"
+        print(f"[7 stage vs plain] copy_ at {what} (the yardstick): {median_ms(lambda: yard.copy_(g)):.4f} ms "
+              f"(median of {REPS}); device us per call: {kernel_breakdown(lambda: yard.copy_(g))} on {card}",
+              flush=True)
+        timed += [(f"gather_blocks_nd{suffix}", what, lambda g=g: stages.gather_blocks_nd(g),
+                   lambda g=g: codec_torch.gather_blocks(g, g.shape)),
+                  (f"scatter_blocks_nd{suffix}", what, lambda b=blocks, o=out_k: (stages.scatter_blocks_nd(b, o), o)[1],
+                   lambda b=blocks, o=out_p: (codec_torch.scatter_blocks(b, o.shape, o), o)[1])]
+    stage_ms = {}
+    for key, what, kernel, plain in timed:
+        hold(key, kernel(), plain(), f"{what} (phase 7)")
+        ms = (median_ms(kernel), median_ms(plain))
+        stage_ms.setdefault(key, ms)
+        print(f"[7 stage vs plain] {key} at {what}: == plain; kernel {ms[0]:.4f} ms, plain "
+              f"{ms[1]:.4f} ms (median of {REPS}); kernel's device us per call: "
+              f"{kernel_breakdown(kernel)} on {card}", flush=True)
 
     if "jax" in sys.modules:
         fail("JAX was imported")
@@ -574,6 +778,17 @@ def main() -> int:
                 "launches": launches[k], "max_abs_err": err[k],
                 "ms": kernel_ms[k][0], "plain_ms": kernel_ms[k][1]}
                for k, (kname, src, rep) in sources.items()]
+    stage_sources = {"placement_floor": ("stage_placement.cu", "dev/enc_floor_probe.py:100"),
+                     "placement_compute": ("stage_placement.cu", "dev/enc_floor_probe.py:100"),
+                     "keep_mask": ("stage_keep_mask.cu", "dev/mosaic_repro.py:39"),
+                     "gather_blocks_nd": ("stage_blocks_nd.cu", "dev/tile_xpose_probe.py:67"),
+                     "scatter_blocks_nd": ("stage_blocks_nd.cu", "dev/tile_xpose_probe.py:67"),
+                     "gather_blocks_nd64": ("stage_blocks_nd.cu", "dev/tile_xpose_probe.py:67"),
+                     "scatter_blocks_nd64": ("stage_blocks_nd.cu", "dev/tile_xpose_probe.py:67")}
+    kernels += [{"name": k, "route": "cuda", "source": f"ndzip_tpu_torch/csrc/{src}", "replaces": rep,
+                 "launches": stage_launches[k], "max_abs_err": serr[k],
+                 "ms": stage_ms[k][0], "plain_ms": stage_ms[k][1]}
+                for k, (src, rep) in stage_sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

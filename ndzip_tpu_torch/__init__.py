@@ -12,6 +12,12 @@ the path:
 Streams are int32 tensors and lengths count u32 words for both profiles, so
 ``stream[:length]`` is the stream; ``compress`` returns the length in the
 profile's words, as ``ndzip_tpu.compress`` does.
+
+The objects of ``api`` (``make_compressor``, ``make_decompressor``,
+``make_offloader``, ``Offloader``, ``CompressorRequirements``) take numpy
+arrays and a backend by name. ``python -m ndzip_tpu_torch.cli`` is the
+command-line compressor, ``.warm`` builds and loads the kernels for planned
+shapes, and ``.ubench`` times the codec stage by stage.
 """
 
 from __future__ import annotations
@@ -20,6 +26,8 @@ import numpy as np
 import torch
 
 from . import codec_cuda, codec_torch, interop
+from .api import (CompressorRequirements, Offloader, make_compressor,  # noqa: F401
+                  make_decompressor, make_offloader)
 
 __version__ = "0.1.0"
 

@@ -43,6 +43,14 @@ SIGNATURES = {
     "ndzip_decode_fp64": [_P, _I64, _I64, _I64, _P, _P],
     "ndzip_encode_fp64_nd": [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P],
     "ndzip_decode_fp64_nd": [_P, _I64, _I64, _I64, _I64, _I64, _P, _P],
+    # stage kernels (stages.py). words, num_hc, out, cuda stream
+    "ndzip_placement_floor": [_P, _I64, _P, _P],
+    "ndzip_placement_compute": [_P, _I64, _P, _P],
+    # x, rows, limit, out, cuda stream
+    "ndzip_keep_mask": [_P, _I64, _I64, _P, _P],
+    # grid (gather) or blocks (scatter), word bytes, dims, e0, e1, e2, the other one, cuda stream
+    "ndzip_gather_blocks_nd": [_P, _I64, _I64, _I64, _I64, _I64, _P, _P],
+    "ndzip_scatter_blocks_nd": [_P, _I64, _I64, _I64, _I64, _I64, _P, _P],
 }
 
 

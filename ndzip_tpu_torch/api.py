@@ -1,0 +1,244 @@
+"""Public API of the port: compressor, decompressor and offloader objects and
+their factories, on numpy arrays. The counterpart of ``ndzip_tpu/api.py``,
+after the reference's public surface (``include/ndzip/ndzip.hh:228-269``,
+``include/ndzip/offload.hh:8-71``).
+
+Backends, all of which give the same stream byte for byte:
+
+* ``cuda``: the CUDA kernels of ``codec_cuda`` on the first card; raises
+  RuntimeError when ``torch.cuda.is_available()`` is false;
+* ``torch``: the plain PyTorch versions of ``codec_torch`` on the CPU;
+* ``golden`` and ``cpu``/``native``: ``ndzip_tpu.golden`` and
+  ``ndzip_tpu.native``, numpy-only;
+* ``auto``: ``cuda`` where a GPU is present, else ``cpu`` where
+  ``ndzip_tpu.native`` is available, else ``golden``
+  (``ndzip_tpu/api.py:214-225``).
+
+The JAX package's ``sharded`` backend has no counterpart yet (multi-GPU is a
+later part of the port), and asking for it raises "unknown backend".
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from ndzip_tpu import format as fmt
+from ndzip_tpu.api import (Compressor, CompressorRequirements, Decompressor, KernelTiming,  # noqa: F401
+                           _GoldenCompressor, _GoldenDecompressor, _NativeCompressor, _NativeDecompressor)
+
+from . import _build, codec_cuda, codec_torch, interop, utils
+
+
+def _require_gpu():
+    if not torch.cuda.is_available():
+        raise RuntimeError("backend 'cuda' needs an NVIDIA GPU: torch.cuda.is_available() is false")
+
+
+def _cuda_ready():
+    """Build or load the kernels' library and create the card's context, so
+    that no compress or decompress pays for either."""
+    _require_gpu()
+    _build.load()
+    torch.zeros(1, device="cuda")
+    torch.cuda.synchronize()
+
+
+class _TorchCompressor(Compressor):
+    """The plain versions on the CPU."""
+
+    device = "cpu"
+
+    def stage(self, data) -> torch.Tensor:
+        """Check ``data`` and copy its words to the device."""
+        data = np.ascontiguousarray(data)
+        self._check(data)
+        return interop.words_from_numpy(data, self.device)
+
+    def encode(self, words: torch.Tensor):
+        return codec_torch.encode(words)
+
+    def compress(self, data):
+        stream, length = self.encode(self.stage(data))
+        length = int(length)
+        return interop.stream_to_numpy(stream, length), length // (self.word_bits // 32)
+
+
+class _TorchDecompressor(Decompressor):
+    device = "cpu"
+
+    def stage(self, stream) -> torch.Tensor:
+        return interop.stream_from_numpy(stream, self.device)
+
+    def decode(self, stream: torch.Tensor, shape) -> torch.Tensor:
+        return codec_torch.decode(stream, shape, self.word_bits)
+
+    def decompress(self, stream, shape):
+        shape = tuple(shape)
+        return interop.words_to_numpy(self.decode(self.stage(stream), shape), self.dtype).reshape(shape)
+
+
+class _CudaCompressor(_TorchCompressor):
+    """The kernels on the first card, made ready here (``_cuda_ready``)."""
+
+    device = "cuda"
+
+    def __init__(self, dtype, dims):
+        super().__init__(dtype, dims)
+        _cuda_ready()
+
+    def encode(self, words):
+        return codec_cuda.compress_device(words)
+
+
+class _CudaDecompressor(_TorchDecompressor):
+    device = "cuda"
+
+    def __init__(self, dtype, dims):
+        super().__init__(dtype, dims)
+        _cuda_ready()
+
+    def decode(self, stream, shape):
+        return codec_cuda.decompress_device(stream, shape, self.dtype)
+
+
+def _resolve_backend(backend: str) -> str:
+    if backend != "auto":
+        return backend
+    if torch.cuda.is_available():
+        return "cuda"
+    from ndzip_tpu import native
+
+    return "cpu" if native.available() else "golden"
+
+
+_COMPRESSORS = {"golden": _GoldenCompressor, "cpu": _NativeCompressor, "native": _NativeCompressor,
+                "torch": _TorchCompressor, "cuda": _CudaCompressor}
+_DECOMPRESSORS = {"golden": _GoldenDecompressor, "cpu": _NativeDecompressor, "native": _NativeDecompressor,
+                  "torch": _TorchDecompressor, "cuda": _CudaDecompressor}
+
+
+def _precompile(backend: str, dtype, requirements: CompressorRequirements):
+    """compressor_requirements (ndzip.hh:255-269) on the card: build or load
+    the kernels' library, then compress and decompress zeros of every planned
+    shape once, so the first real call loads no kernel."""
+    if backend != "cuda":
+        return
+    _cuda_ready()
+    for shape in requirements.shapes:
+        stream, length = codec_cuda.compress_device(torch.zeros(shape, dtype=_torch_dtype(dtype), device="cuda"))
+        codec_cuda.decompress_device(stream[: int(length)], shape, dtype)
+
+
+def _torch_dtype(dtype) -> torch.dtype:
+    return torch.float64 if fmt.word_bits_for_dtype(np.dtype(dtype)) == 64 else torch.float32
+
+
+def make_compressor(dtype, dims, backend="auto", threads=1, requirements=None) -> Compressor:
+    backend = _resolve_backend(backend)
+    cls = _COMPRESSORS.get(backend)
+    if cls is None:
+        raise ValueError(f"unknown backend {backend!r}; options: {sorted(_COMPRESSORS)}")
+    if requirements is not None:
+        _precompile(backend, dtype, requirements)
+    if cls is _NativeCompressor:
+        return cls(dtype, dims, threads=threads)
+    return cls(dtype, dims)
+
+
+def make_decompressor(dtype, dims, backend="auto", threads=1) -> Decompressor:
+    backend = _resolve_backend(backend)
+    cls = _DECOMPRESSORS.get(backend)
+    if cls is None:
+        raise ValueError(f"unknown backend {backend!r}; options: {sorted(_DECOMPRESSORS)}")
+    if cls is _NativeDecompressor:
+        return cls(dtype, dims, threads=threads)
+    return cls(dtype, dims)
+
+
+class Offloader:
+    """Host arrays in and out, with the duration of each call
+    (offload.hh:8-71).
+
+    ``timing_mode`` says what ``timing`` holds after each call:
+
+    * ``"wall"`` (default): the host clock around the whole call, staging
+      and copies included.
+    * ``"device"``, for ``cuda``: the reference's ``kernel_duration``
+      (offload.hh:16-24), the device's time for the codec's kernels. The
+      input or stream is first copied to the card and synchronized; then
+      ``codec_cuda.compress_device``/``decompress_device`` alone runs
+      between two CUDA events, its launches queued behind a spin kernel
+      (``utils.event_time_ms(..., queued=True)``), and the elapsed time is
+      ``compress_ns``/``decompress_ns``. The host's time to enqueue the
+      launches (0.05-0.4 ms a call on an H100 machine) is not in it; reading
+      the length and the copy back come after the second event. Host
+      backends take wall time.
+
+    ``measure(data)`` fills ``timing`` with the median of the same device
+    time of one compress and one decompress over ``reps`` calls
+    (``utils.device_time_ms(..., queued=True)``); it needs ``cuda``."""
+
+    def __init__(self, dtype, dims, backend="auto", threads=1, timing_mode="wall"):
+        if timing_mode not in ("wall", "device"):
+            raise ValueError("timing_mode must be 'wall' or 'device'")
+        self.backend = _resolve_backend(backend)
+        self._comp = make_compressor(dtype, dims, self.backend, threads)
+        self._dec = make_decompressor(dtype, dims, self.backend, threads)
+        self.dtype = self._comp.dtype
+        self.dims = dims
+        self.timing = KernelTiming()
+        self.timing_mode = timing_mode if self.backend == "cuda" else "wall"
+
+    def compress(self, data) -> tuple[np.ndarray, int]:
+        if self.timing_mode == "device":
+            return self._compress_device_timed(data)
+        (stream, words), self.timing.compress_ns = utils.wall_time_ns(lambda: self._comp.compress(data))
+        return stream, words
+
+    def decompress(self, stream, shape) -> np.ndarray:
+        if self.timing_mode == "device":
+            return self._decompress_device_timed(stream, shape)
+        out, self.timing.decompress_ns = utils.wall_time_ns(lambda: self._dec.decompress(stream, shape))
+        return out
+
+    def _compress_device_timed(self, data):
+        words = self._comp.stage(data)
+        torch.cuda.synchronize()
+        (stream, length), ms = utils.event_time_ms(lambda: codec_cuda.compress_device(words), queued=True)
+        self.timing.compress_ns = round(ms * 1e6)
+        length = int(length)
+        return interop.stream_to_numpy(stream, length), length // (self._comp.word_bits // 32)
+
+    def _decompress_device_timed(self, stream, shape):
+        shape = tuple(shape)
+        s = self._dec.stage(stream)
+        torch.cuda.synchronize()
+        out, ms = utils.event_time_ms(lambda: codec_cuda.decompress_device(s, shape, self.dtype),
+                                      queued=True)
+        self.timing.decompress_ns = round(ms * 1e6)
+        return interop.words_to_numpy(out, self.dtype).reshape(shape)
+
+    def measure(self, data, reps: int = 10) -> KernelTiming:
+        """Median device time over ``reps`` calls (after 2 warm-ups) of one
+        compress and one decompress of ``data`` on the card, in ns, the
+        host's time to enqueue them left out as in ``timing_mode="device"``."""
+        if self.backend != "cuda":
+            raise ValueError("measure() requires the cuda backend")
+        words = self._comp.stage(data)
+        shape = tuple(words.shape)
+        stream, length = codec_cuda.compress_device(words)
+        s = stream[: int(length)]
+        self.timing.compress_ns = round(
+            utils.device_time_ms(lambda: codec_cuda.compress_device(words), reps, queued=True) * 1e6)
+        self.timing.decompress_ns = round(
+            utils.device_time_ms(lambda: codec_cuda.decompress_device(s, shape, self.dtype), reps,
+                                 queued=True) * 1e6)
+        return self.timing
+
+    def compressed_length_bound(self, shape) -> int:
+        return fmt.compressed_bound_words(tuple(shape), self._comp.word_bits)
+
+
+def make_offloader(backend, dtype, dims, threads: int = 1, **kwargs) -> Offloader:
+    return Offloader(dtype, dims, backend=backend, threads=threads, **kwargs)

@@ -193,14 +193,15 @@ def _bit_weights(bits: int, dtype, device) -> torch.Tensor:
         bits - 1 - torch.arange(bits, dtype=dtype, device=device))
 
 
-def encode_blocks_ref(blocks: torch.Tensor, dims: int = 1):
-    """Encode (nb, 4096) int32 (fp32) or int64 (fp64) blocks of a
-    ``dims``-dimensional grid.
+def encode_blocks_dense(blocks: torch.Tensor, dims: int = 1):
+    """Transform, chunk and bit-transpose (nb, 4096) int32 (fp32) or int64
+    (fp64) blocks of a ``dims``-dimensional grid, before compaction
+    (``golden.encode_blocks_dense``).
 
-    Returns ``(header, body, lengths)``: ``header`` (nb,) int32 offset-after
-    entries in the profile's words, ``body`` the blocks' compressed words back
-    to back in the blocks' dtype (what the stream holds from the first body
-    word on), ``lengths`` (nb,) int64 words per block."""
+    Returns ``(dense, valid, lengths)``: ``dense`` (nb, 4096/W + 4096) words,
+    per block its W-bit head words then every transposed word, zeros
+    included; ``valid`` the bool mask of the words the stream keeps;
+    ``lengths`` (nb,) int64 words per block."""
     nb, bits = blocks.shape[0], bitops.word_bits(blocks)
     heads_n = HC // bits
     t = bitops.transpose_bits(block_transform(blocks, dims).reshape(nb, heads_n, bits))
@@ -209,7 +210,18 @@ def encode_blocks_ref(blocks: torch.Tensor, dims: int = 1):
     heads = (nz.to(blocks.dtype) * _bit_weights(bits, blocks.dtype, blocks.device)).sum(-1, dtype=blocks.dtype)
     dense = torch.cat([heads, t.reshape(nb, HC)], dim=1)
     valid = torch.cat([torch.ones_like(heads, dtype=torch.bool), nz.reshape(nb, HC)], dim=1)
-    lengths = valid.sum(dim=1)
+    return dense, valid, valid.sum(dim=1)
+
+
+def encode_blocks_ref(blocks: torch.Tensor, dims: int = 1):
+    """Encode (nb, 4096) int32 (fp32) or int64 (fp64) blocks of a
+    ``dims``-dimensional grid.
+
+    Returns ``(header, body, lengths)``: ``header`` (nb,) int32 offset-after
+    entries in the profile's words, ``body`` the blocks' compressed words back
+    to back in the blocks' dtype (what the stream holds from the first body
+    word on), ``lengths`` (nb,) int64 words per block."""
+    dense, valid, lengths = encode_blocks_dense(blocks, dims)
     header = torch.cumsum(lengths, 0).to(torch.int32)
     return header, dense[valid], lengths
 

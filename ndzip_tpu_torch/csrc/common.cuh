@@ -111,6 +111,38 @@ struct EncodeShared {
     uint32_t offsets[kChunks];  // per-chunk counts, then their exclusive scan
 };
 
+// The 1D encoders' load and transform (encode_fp32.cu; the placement stage
+// of stage_placement.cu): load the 16-byte aligned 4096-word block `block`
+// into x with 16-byte loads, rotating each word left by one, then first
+// differences along the block (word 0 stays) and complement-negative. Ends
+// with a barrier.
+__device__ __forceinline__ void load_transform_1d(const uint32_t* __restrict__ block, uint32_t* x) {
+    const int t = threadIdx.x;
+    const uint4* src = reinterpret_cast<const uint4*>(block);
+#pragma unroll
+    for (int k = 0; k < kHcSize / 4 / kThreads; ++k) {
+        const int q = t + k * kThreads;
+        const uint4 v = src[q];
+        x[pad(4 * q)] = rotl1(v.x);
+        x[pad(4 * q + 1)] = rotl1(v.y);
+        x[pad(4 * q + 2)] = rotl1(v.z);
+        x[pad(4 * q + 3)] = rotl1(v.w);
+    }
+    __syncthreads();
+
+    uint32_t seg[kWordsPerThread];
+    uint32_t prev = t ? x[pad(kWordsPerThread * t - 1)] : 0u;
+#pragma unroll
+    for (int k = 0; k < kWordsPerThread; ++k) seg[k] = x[pad(kWordsPerThread * t + k)];
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kWordsPerThread; ++k) {
+        x[pad(kWordsPerThread * t + k)] = complement_negative(seg[k] - prev);
+        prev = seg[k];
+    }
+    __syncthreads();
+}
+
 struct DecodeShared {
     uint32_t x[kPadded];
     uint32_t heads[kChunks];

@@ -19,8 +19,10 @@
 //      heads and nonzero words at num_hc + (b ? header[b-1] : 0); one more
 //      CTA copies the border tail words[num_hc*4096 ..) after the last body
 //      word.
-// Everything after the transform is common.cuh's encode_chunks, which the
-// 2D/3D encoder (encode_fp32_nd.cu) shares.
+// The load and transform are common.cuh's load_transform_1d, which the
+// placement stage kernels (stage_placement.cu) share; everything after the
+// transform is common.cuh's encode_chunks, which the 2D/3D encoder
+// (encode_fp32_nd.cu) shares.
 //
 // Bound: bytes. Each element is read twice (4 B in pass 1 and 4 B in pass 3;
 // recomputing costs less than a scratch copy of the stream, which would be
@@ -37,40 +39,13 @@ __global__ void __launch_bounds__(kThreads)
 encode_blocks(const uint32_t* __restrict__ words, uint64_t num_hc, Border border,
               uint32_t* __restrict__ lengths, uint32_t* __restrict__ stream) {
     const uint64_t b = blockIdx.x;
-    const int t = threadIdx.x;
     if (kPlace && b >= num_hc) {  // the border CTA
         encode_border(words, border, num_hc, b - num_hc, stream);
         return;
     }
 
     __shared__ EncodeShared s;
-
-    // load the block with 16-byte loads, rotating each word left by one
-    const uint4* src = reinterpret_cast<const uint4*>(words + b * kHcSize);
-#pragma unroll
-    for (int k = 0; k < kHcSize / 4 / kThreads; ++k) {
-        const int q = t + k * kThreads;
-        const uint4 v = src[q];
-        s.x[pad(4 * q)] = rotl1(v.x);
-        s.x[pad(4 * q + 1)] = rotl1(v.y);
-        s.x[pad(4 * q + 2)] = rotl1(v.z);
-        s.x[pad(4 * q + 3)] = rotl1(v.w);
-    }
-    __syncthreads();
-
-    // first differences along the block (word 0 stays), then complement
-    uint32_t seg[kWordsPerThread];
-    uint32_t prev = t ? s.x[pad(kWordsPerThread * t - 1)] : 0u;
-#pragma unroll
-    for (int k = 0; k < kWordsPerThread; ++k) seg[k] = s.x[pad(kWordsPerThread * t + k)];
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < kWordsPerThread; ++k) {
-        s.x[pad(kWordsPerThread * t + k)] = complement_negative(seg[k] - prev);
-        prev = seg[k];
-    }
-    __syncthreads();
-
+    load_transform_1d(words + b * kHcSize, s.x);  // common.cuh
     encode_chunks<kPlace>(s, b, num_hc, lengths, stream);
 }
 

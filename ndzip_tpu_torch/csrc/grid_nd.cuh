@@ -1,7 +1,8 @@
 // Geometry shared by the fp32 2D/3D kernels (encode_fp32_nd.cu,
-// decode_fp32_nd.cu): where a block lies in the grid, the strided copy of a
-// block between the grid and shared memory, and the lines of a block along
-// each axis that the transform walks.
+// decode_fp32_nd.cu): where a block lies in the grid, the row walk that moves
+// a block between the grid and shared memory (walk_block, which the fp64
+// kernels and stage_blocks_nd.cu move blocks with too), and the lines of a
+// block along each axis that the transform walks.
 //
 // A grid of 2 or 3 dims is seen with three axes (e0, e1, e2), e0 = 1 in 2D.
 // Its blocks are 64x64 (2D) or 16^3 (3D) words. In shared memory a block sits
@@ -32,6 +33,8 @@ struct Blocks {
     __device__ __forceinline__ uint64_t row(int r) const {
         return Dims == 2 ? r * e2 : (r / kSide) * e1 * e2 + (r % kSide) * e2;
     }
+    // Offset from a block's first word of its word i (row-major in the block).
+    __device__ __forceinline__ uint64_t word(int i) const { return row(i / kSide) + i % kSide; }
 };
 
 // The blocks and the border of a grid of extents (e0, e1, e2).
@@ -56,29 +59,33 @@ inline bool rows_aligned(const void* grid, uint64_t e2) {
     return reinterpret_cast<uintptr_t>(grid) % 16 == 0 && e2 % 4 == 0;
 }
 
+// The walk of a block's words that every 2D/3D kernel moves a block through
+// the grid with: thread t calls f(i) for block words i = W * (t + k *
+// kThreads); the W words from i lie in one row, at geo.word(i) in the grid.
+// W = 16 / sizeof(word) where every row starts 16-byte aligned (one 16-byte
+// access a call), else 1. A warp covers whole rows.
+template <int W, typename F>
+__device__ __forceinline__ void walk_block(F f) {
+    constexpr int kUnroll = W > 1 ? kHcSize / W / kThreads : 4;
+#pragma unroll (kUnroll)
+    for (int k = 0; k < kHcSize / W / kThreads; ++k) f(W * (static_cast<int>(threadIdx.x) + k * kThreads));
+}
+
 // Load the block whose first word is `block` into x, rotating each word left
 // by one. A warp reads whole rows: 256 B (2D) or 64 B (3D) runs.
 template <int Dims>
 __device__ __forceinline__ void load_block(const uint32_t* __restrict__ block, const Blocks<Dims>& geo,
                                            bool vec, uint32_t* x) {
-    constexpr int S = Blocks<Dims>::kSide;
-    const int t = threadIdx.x;
     if (vec) {
-#pragma unroll
-        for (int k = 0; k < kHcSize / 4 / kThreads; ++k) {
-            const int i = 4 * (t + k * kThreads);
-            const uint4 v = *reinterpret_cast<const uint4*>(block + geo.row(i / S) + i % S);
+        walk_block<4>([&](int i) {
+            const uint4 v = *reinterpret_cast<const uint4*>(block + geo.word(i));
             x[pad(i)] = rotl1(v.x);
             x[pad(i + 1)] = rotl1(v.y);
             x[pad(i + 2)] = rotl1(v.z);
             x[pad(i + 3)] = rotl1(v.w);
-        }
+        });
     } else {
-#pragma unroll 4
-        for (int k = 0; k < kHcSize / kThreads; ++k) {
-            const int i = t + k * kThreads;
-            x[pad(i)] = rotl1(block[geo.row(i / S) + i % S]);
-        }
+        walk_block<1>([&](int i) { x[pad(i)] = rotl1(block[geo.word(i)]); });
     }
 }
 
@@ -87,22 +94,13 @@ __device__ __forceinline__ void load_block(const uint32_t* __restrict__ block, c
 template <int Dims>
 __device__ __forceinline__ void store_block(uint32_t* __restrict__ block, const Blocks<Dims>& geo,
                                             bool vec, const uint32_t* x) {
-    constexpr int S = Blocks<Dims>::kSide;
-    const int t = threadIdx.x;
     if (vec) {
-#pragma unroll
-        for (int k = 0; k < kHcSize / 4 / kThreads; ++k) {
-            const int i = 4 * (t + k * kThreads);
-            *reinterpret_cast<uint4*>(block + geo.row(i / S) + i % S) =
-                make_uint4(rotr1(x[pad(i)]), rotr1(x[pad(i + 1)]), rotr1(x[pad(i + 2)]),
-                           rotr1(x[pad(i + 3)]));
-        }
+        walk_block<4>([&](int i) {
+            *reinterpret_cast<uint4*>(block + geo.word(i)) =
+                make_uint4(rotr1(x[pad(i)]), rotr1(x[pad(i + 1)]), rotr1(x[pad(i + 2)]), rotr1(x[pad(i + 3)]));
+        });
     } else {
-#pragma unroll 4
-        for (int k = 0; k < kHcSize / kThreads; ++k) {
-            const int i = t + k * kThreads;
-            block[geo.row(i / S) + i % S] = rotr1(x[pad(i)]);
-        }
+        walk_block<1>([&](int i) { block[geo.word(i)] = rotr1(x[pad(i)]); });
     }
 }
 

@@ -26,22 +26,14 @@ inline bool rows_aligned64(const void* grid, uint64_t e2) {
 template <int Dims>
 __device__ __forceinline__ void load_block64(const u64* __restrict__ block, const Blocks<Dims>& geo,
                                              bool vec, u64* x) {
-    constexpr int S = Blocks<Dims>::kSide;
-    const int t = threadIdx.x;
     if (vec) {
-#pragma unroll
-        for (int k = 0; k < kHcSize / 2 / kThreads; ++k) {
-            const int i = 2 * (t + k * kThreads);
-            const ulonglong2 v = *reinterpret_cast<const ulonglong2*>(block + geo.row(i / S) + i % S);
+        walk_block<2>([&](int i) {
+            const ulonglong2 v = *reinterpret_cast<const ulonglong2*>(block + geo.word(i));
             x[pad64(i)] = rotl1(v.x);
             x[pad64(i + 1)] = rotl1(v.y);
-        }
+        });
     } else {
-#pragma unroll 4
-        for (int k = 0; k < kHcSize / kThreads; ++k) {
-            const int i = t + k * kThreads;
-            x[pad64(i)] = rotl1(block[geo.row(i / S) + i % S]);
-        }
+        walk_block<1>([&](int i) { x[pad64(i)] = rotl1(block[geo.word(i)]); });
     }
 }
 
@@ -50,21 +42,13 @@ __device__ __forceinline__ void load_block64(const u64* __restrict__ block, cons
 template <int Dims>
 __device__ __forceinline__ void store_block64(u64* __restrict__ block, const Blocks<Dims>& geo, bool vec,
                                               const u64* x) {
-    constexpr int S = Blocks<Dims>::kSide;
-    const int t = threadIdx.x;
     if (vec) {
-#pragma unroll
-        for (int k = 0; k < kHcSize / 2 / kThreads; ++k) {
-            const int i = 2 * (t + k * kThreads);
-            *reinterpret_cast<ulonglong2*>(block + geo.row(i / S) + i % S) =
+        walk_block<2>([&](int i) {
+            *reinterpret_cast<ulonglong2*>(block + geo.word(i)) =
                 make_ulonglong2(rotr1(x[pad64(i)]), rotr1(x[pad64(i + 1)]));
-        }
+        });
     } else {
-#pragma unroll 4
-        for (int k = 0; k < kHcSize / kThreads; ++k) {
-            const int i = t + k * kThreads;
-            block[geo.row(i / S) + i % S] = rotr1(x[pad64(i)]);
-        }
+        walk_block<1>([&](int i) { block[geo.word(i)] = rotr1(x[pad64(i)]); });
     }
 }
 

@@ -14,11 +14,13 @@ torch = pytest.importorskip("torch")
 
 import ndzip_tpu_torch as nt  # noqa: E402
 from ndzip_tpu import golden  # noqa: E402
-from ndzip_tpu_torch import _build, codec_cuda, interop  # noqa: E402
+from ndzip_tpu_torch import _build, codec_cuda, interop, stages  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 MODULES = ["ndzip_tpu_torch", "ndzip_tpu_torch._build", "ndzip_tpu_torch.codec_cuda",
-           "ndzip_tpu_torch.codec_torch", "ndzip_tpu_torch.interop", "ndzip_tpu_torch.ops.bitops"]
+           "ndzip_tpu_torch.codec_torch", "ndzip_tpu_torch.interop", "ndzip_tpu_torch.ops.bitops",
+           "ndzip_tpu_torch.api", "ndzip_tpu_torch.cli", "ndzip_tpu_torch.stages",
+           "ndzip_tpu_torch.ubench", "ndzip_tpu_torch.utils", "ndzip_tpu_torch.warm"]
 
 
 def test_import_leaves_jax_out():
@@ -86,6 +88,21 @@ def test_cuda_entry_points_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         codec_cuda._decode_interior_fp64(torch.zeros(10, dtype=torch.int32), (16, 16, 16))
     assert codec_cuda.LAUNCHES == before
+
+    stage_before = dict(stages.LAUNCHES)
+    blocks = torch.zeros(2, 4096, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        stages.placement_floor(blocks)
+    with pytest.raises(ValueError, match="CUDA"):
+        stages.placement_compute(blocks)
+    with pytest.raises(ValueError, match="CUDA"):
+        stages.keep_mask(torch.ones(stages.P2_ROWS, stages.LANES, dtype=torch.int32))
+    for grid in (torch.zeros(64, 64, dtype=torch.int32), torch.zeros(16, 16, 16, dtype=torch.int64)):
+        with pytest.raises(ValueError, match="CUDA"):
+            stages.gather_blocks_nd(grid)
+        with pytest.raises(ValueError, match="CUDA"):
+            stages.scatter_blocks_nd(torch.zeros(1, 4096, dtype=grid.dtype), grid)
+    assert stages.LAUNCHES == stage_before
 
 
 @pytest.mark.parametrize("shape", [(4096,), (64, 64), (16, 16, 16)], ids=["fp64", "2d", "3d"])
