@@ -6,10 +6,16 @@ line each, and any failure raises and exits nonzero:
 
 1. device: the card's name, ``nvidia-smi``'s name and power limit, versions;
 2. build: the CUDA kernels from ``ndzip_tpu_torch/csrc`` with nvcc, one nvcc
-   per source, all started together;
+   per source, all started together; what ``ptxas -v`` says of the two 1D fp32
+   kernels (registers, shared memory, spills) and the CTAs an SM holds of each;
 3. each kernel against its plain PyTorch version on the card, exact: the 1D
    kernels on small fp32 1D cases (borders, zeros, incompressible bits,
-   constants, one block, special floats), the 2D/3D kernels on small grids
+   constants, one block, special floats; the decoder also on the stream
+   as a view at word offsets 1-3 of its storage, as ``stream[:length]`` with
+   nothing after it, and truncated at four places, where it must not fault and
+   must give what the plain version gives with zeros for the missing words;
+   the encoder also 20 times in a row and six times on two CUDA streams at
+   once, every stream equal to the plain version's), the 2D/3D kernels on small grids
    (aligned and unaligned rows, borders on one or two axes, constants, random
    bits, special floats), and one all-border grid through the glue; then the
    four fp64 kernels on tests/test_pallas.py's fp64 shapes (an odd block
@@ -28,7 +34,11 @@ line each, and any failure raises and exits nonzero:
 5. timing with CUDA events: median of 10 runs after a warm-up, compress and
    decompress against the plain version and a device-to-device ``copy_``,
    per size and cell; then each kernel's mean device time per call from
-   ``torch.profiler``;
+   ``torch.profiler``; and for each of the eight codec kernels a ``[bound]``
+   line: the bytes it must move at that size (input read once, output written
+   once, the stream as long as this run's data makes it), the time the card's
+   memory needs for them at ``HBM_BYTES_PER_S``, the kernel's device time and
+   its share of that bound;
 6. the entry points on the card: ``api.Offloader(..., "cuda",
    timing_mode="device")`` on the 2^24 fp32 and 2^23 fp64 cells (streams
    equal to the plain version's, bit-exact round trips, the cell's encode
@@ -46,7 +56,9 @@ line each, and any failure raises and exits nonzero:
    counts over it, counted from 0 just before it; then each stage kernel
    against its plain version on ubench's working sets, exact, then timed:
    P1 and P2 at 2^24 (4096 blocks), P3 at 256^3 and 4096x4096 fp32 and
-   192^3 fp64 (scatters into grids of -1s).
+   192^3 fp64 (scatters into grids of -1s), each with its ``[bound]`` line;
+   P3 also against the one PyTorch call that computes the same function (a
+   permuted view made contiguous, or copied into), which the port never calls.
 
 Phase 3 also holds the five stage kernels of ``stages.py`` to their plain
 versions, exact: the block gather and scatter on every 2D/3D case of both
@@ -75,6 +87,7 @@ import numpy as np
 REPS = 10
 SEED = 0
 DEVICE_TIMING_BAND = (0.8, 1.25)  # one Offloader device reading against measure()'s median
+HBM_BYTES_PER_S = 3.35e12         # the H100 SXM's memory rate (NVIDIA's data sheet), what bounds every kernel here
 
 
 def fail(what: str):
@@ -148,19 +161,55 @@ def cube64(dev):
     return d + 1e-3 * torch.randn((512, 512, 512), dtype=torch.float64, device=dev, generator=gen)
 
 
-def kernel_breakdown(fn) -> str:
-    """Mean device time per call of each CUDA kernel ``fn`` launches, from
-    torch.profiler over REPS calls (the profiler's cost is inside)."""
+def device_us(fn, flush=None) -> tuple[float, str]:
+    """Mean device time per call of what ``fn`` launches, from torch.profiler
+    over REPS calls (the profiler's cost is inside): the sum in us, and the
+    breakdown by kernel as text. With ``flush`` (see ``l2_flush``) that runs
+    before every call, so that ``fn`` finds none of its bytes in the L2, and
+    the flush's own kernels are left out of the sum. Now and then a trace
+    comes back without any device activity; it is then taken again, and the
+    script fails if three in a row hold none."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(REPS):
-            fn()
+    skip = flush.keys if flush else ()
+    for _attempt in range(3):
         torch.cuda.synchronize()
-    rows = sorted(((e.device_time_total / REPS, e.key.split("(")[0]) for e in prof.key_averages()
-                   if e.device_type.name == "CUDA" and e.device_time_total), reverse=True)
-    return "; ".join(f"{key} {us:.2f}" for us, key in rows)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for _ in range(REPS):
+                if flush:
+                    flush()
+                fn()
+            torch.cuda.synchronize()
+        rows = sorted(((e.device_time_total / REPS, e.key.split("(")[0]) for e in prof.key_averages()
+                       if e.device_type.name == "CUDA" and e.device_time_total and e.key not in skip), reverse=True)
+        if rows:
+            return sum(us for us, _ in rows), "; ".join(f"{key} {us:.2f}" for us, key in rows)
+    fail("torch.profiler gave no device activity in three traces of one function")
+
+
+def l2_flush(dev):
+    """A call that pushes everything out of the card's L2 (50 MB on the H100):
+    it rewrites 256 MiB of scratch in place with ``cos_``, an operation that
+    nothing timed here launches. ``keys`` holds the profiler's names of its
+    kernels, read from a trace of the flush alone."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    scratch = torch.zeros(64 * 2**20, dtype=torch.float32, device=dev)
+
+    def flush():
+        scratch.cos_()
+
+    flush()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        flush()
+        torch.cuda.synchronize()
+    flush.keys = {e.key for e in prof.key_averages() if e.device_type.name == "CUDA" and e.device_time_total}
+    if not flush.keys:
+        fail("torch.profiler gave no device activity for the L2 flush")
+    return flush
 
 
 def kernel_cases() -> dict[str, np.ndarray]:
@@ -288,8 +337,17 @@ def main() -> int:
     # ---- 2. build
     t0 = time.perf_counter()
     lib_path = _build.build()
-    _build.load()
+    lib = _build.load()
     print(f"[2 build] {lib_path.name} in {time.perf_counter() - t0:.2f} s", flush=True)
+    report = _build.ptxas_report().splitlines()
+    for kernel, ctas in (("encode_blocks", lib.ndzip_encode_fp32_ctas_per_sm()),
+                         ("decode_blocks", lib.ndzip_decode_fp32_ctas_per_sm())):
+        at = [i for i, line in enumerate(report) if "Compiling entry" in line and f"5ndzip13{kernel}E" in line]
+        if len(at) != 1 or ctas < 1:
+            fail(f"ptxas reported the 1D fp32 kernel {kernel} {len(at)} times, or no CTA of it fits an SM ({ctas})")
+        print(f"[2 build] ptxas -v, 1D fp32 {kernel}: "
+              + " ".join(line.replace("ptxas info    :", "").strip() for line in report[at[0] + 2: at[0] + 4])
+              + f"; {ctas} CTAs an SM", flush=True)
 
     err = dict.fromkeys(codec_cuda.LAUNCHES, 0)
 
@@ -322,8 +380,43 @@ def main() -> int:
         err["decode"] = max(err["decode"], e)
         if e or not torch.equal(out, w):
             fail(f"decode kernel != plain or != input on {label!r} (max_abs_err {e})")
-        print(f"[3 kernels] {label}: n={n} blocks={num_hc} length={L} encode == plain, "
-              f"decode == plain == input", flush=True)
+        if label == "all zeros" and int(lengths.max()) != HC // 32:
+            fail("all zeros did not give every block the 128-word minimum")
+        # the decoder on views of the stream: at odd word offsets of its storage, with nothing
+        # after the stream, and truncated (no fault; the missing words count as zeros)
+        for offset in (0, 1, 2, 3):
+            storage = torch.full((offset + L,), -1, dtype=torch.int32, device=dev)
+            storage[offset:] = ref_stream[:L]
+            e = max_abs_err(codec_cuda._decode_blocks_fp32(storage[offset:], n), w)
+            err["decode"] = max(err["decode"], e)
+            if e:
+                fail(f"decode kernel != input on {label!r}, stream[:length] at word offset {offset} of its "
+                     f"storage (max_abs_err {e})")
+        for cut in sorted({num_hc, num_hc + 1, num_hc + 130, L * 2 // 3, L - 1}):
+            zeros_past = torch.zeros_like(ref_stream)
+            zeros_past[:cut] = ref_stream[:cut]
+            out = codec_cuda._decode_blocks_fp32(ref_stream[:cut].clone(), n)
+            e = max_abs_err(out[: num_hc * HC], codec_torch.decode_blocks_ref(zeros_past, num_hc).reshape(-1))
+            err["decode"] = max(err["decode"], e)
+            if e:
+                fail(f"decode kernel != plain on {label!r} truncated to {cut} of {L} words (max_abs_err {e})")
+        # the encoder again and again, and on two CUDA streams at once: a call's status words are its own
+        side = [torch.cuda.Stream(), torch.cuda.Stream()]
+        torch.cuda.synchronize()
+        again = [codec_cuda._encode_blocks_fp32(w) for _ in range(20)]
+        for i in range(6):
+            with torch.cuda.stream(side[i % 2]):
+                again.append(codec_cuda._encode_blocks_fp32(w))
+        torch.cuda.synchronize()
+        for i, (stream, length) in enumerate(again):
+            e = max_abs_err(stream[:L], ref_stream[:L]) if int(length) == L else -1
+            err["encode"] = max(err["encode"], e)
+            if e:
+                fail(f"encode kernel != plain on {label!r}, call {i} of 20 in a row and 6 on two CUDA streams")
+        del again
+        print(f"[3 kernels] {label}: n={n} blocks={num_hc} length={L} encode == plain (26 more calls, 6 of them "
+              f"on two CUDA streams), decode == plain == input (also at word offsets 1-3, without slack, and "
+              f"truncated)", flush=True)
 
     for label, data in nd_kernel_cases().items():
         w = cuda_words(data)
@@ -535,17 +628,59 @@ def main() -> int:
         for what, fn in (("compress", lambda: nt.compress_device(x)),
                          ("decompress", lambda: nt.decompress_device(sl, shape, x.dtype))):
             print(f"[5 profile] {label} {what}, mean device us per call by kernel over {REPS} calls: "
-                  f"{kernel_breakdown(fn)} on {card}", flush=True)
+                  f"{device_us(fn)[1]} on {card}", flush=True)
         return rows, sl
 
-    kernel_ms, event_ms = {}, {}  # event_ms: phase 5's rows of the cells phase 6 runs again
+    kernel_rows, event_ms = {}, {}  # event_ms: phase 5's rows of the cells phase 6 runs again
+
+    flush = l2_flush(dev)
+
+    def record(key, what, kernel, plain_ms, bytes_in, bytes_out, library=None):
+        """One kernel at one size: the wrapper's event median, its device time from the profiler
+        with the L2 flushed before every call (and, beside it, back to back), and the least time
+        the card's memory needs for the bytes the function must move (each input byte read once,
+        each output byte written once). The share is bound / flushed device time: back to back a
+        64 MiB input is served in part by the L2, which the bound does not know. The first size of
+        a kernel goes to the JSON line."""
+        ms = median_ms(kernel)
+        us, parts = device_us(kernel, flush)
+        warm_us = device_us(kernel)[0]
+        bound_ms = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
+        library_ms = median_ms(library) if library else None
+        library_text = (f"{library_ms:.4f} ms (device {device_us(library, flush)[0]:.2f} us, back to back "
+                        f"{device_us(library)[0]:.2f} us)") if library else "none"
+        share = bound_ms * 1e3 / us
+        # a kernel ends when its stores reach the 50 MB L2, not the memory: at 64 MiB it can end
+        # before the memory's rate allows, and the share is then not given
+        share_text = f"{share:.1%}" if share <= 1 else (
+            "not given: the device time is under the bound (the L2 still holds part of the output when "
+            "the kernel ends), so the bytes at the memory's rate are no lower bound at this size")
+        kernel_rows.setdefault(key, {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+                                     "library_ms": library_ms})
+        print(f"[bound] {key} at {what}: {bytes_in / 1e6:.1f} + {bytes_out / 1e6:.1f} MB in + out, bound "
+              f"{bound_ms * 1e3:.2f} us (bytes at {HBM_BYTES_PER_S / 1e12:.2f} TB/s); device {us:.2f} us "
+              f"after an L2 flush ({parts}), {warm_us:.2f} us back to back; bound / device = {share_text}; "
+              f"wrapper {ms:.4f} ms, plain {plain_ms:.4f} ms, library call {library_text} on {card}", flush=True)
+
+    def record_codec(x, sl, rows, what):
+        """The encode and decode kernels that take ``x``, at its size; ``sl`` is its stream."""
+        w = codec_torch.as_words(x)
+        shape, wide, nd = tuple(w.shape), w.element_size() == 8, w.dim() > 1
+        enc, dec = kernel_keys(x)
+        encode = {(False, False): codec_cuda._encode_blocks_fp32, (False, True): codec_cuda._encode_interior_fp32,
+                  (True, False): codec_cuda._encode_blocks_fp64, (True, True): codec_cuda._encode_interior_fp64}
+        decode = {(False, False): codec_cuda._decode_blocks_fp32, (False, True): codec_cuda._decode_interior_fp32,
+                  (True, False): codec_cuda._decode_blocks_fp64, (True, True): codec_cuda._decode_interior_fp64}
+        raw, packed = w.numel() * w.element_size(), sl.numel() * 4
+        record(enc, what, lambda: encode[wide, nd](w), rows["compress plain"], raw, packed)
+        record(dec, what, lambda: decode[wide, nd](sl, shape if nd else shape[0]), rows["decompress plain"],
+               packed, raw)
+
     rows, sl = time_cell(x24, f"n={n24}")
     event_ms["2^24"] = rows
-    w24 = x24.view(torch.int32)
-    kernel_ms["encode"] = (median_ms(lambda: codec_cuda._encode_blocks_fp32(w24)), rows["compress plain"])
-    kernel_ms["decode"] = (median_ms(lambda: codec_cuda._decode_blocks_fp32(sl, n24)),
-                           rows["decompress plain"])
-    time_cell(x28, f"n={n28}")
+    record_codec(x24, sl, rows, "2^24")
+    rows, sl = time_cell(x28, f"n={n28}")
+    record_codec(x28, sl, rows, "2^28+17")
     del x24, x28, sl
     torch.cuda.empty_cache()
 
@@ -574,12 +709,8 @@ def main() -> int:
               f"round trip bit-exact; launches {counts}", flush=True)
         del s, y
         rows, sl = time_cell(x, label)
-        if label == "256^3":
-            w = x.view(torch.int32)
-            kernel_ms["encode_nd"] = (median_ms(lambda: codec_cuda._encode_interior_fp32(w)),
-                                      rows["compress plain"])
-            kernel_ms["decode_nd"] = (median_ms(lambda: codec_cuda._decode_interior_fp32(sl, shape)),
-                                      rows["decompress plain"])
+        if label != "CESM 1800x3600":
+            record_codec(x, sl, rows, label)
         del x, sl
         torch.cuda.empty_cache()
     launches.update(launches_nd)
@@ -608,16 +739,8 @@ def main() -> int:
         del s, y
         rows, sl = time_cell(x, label)
         event_ms[label] = rows
-        w = x.view(torch.int64)
-        if x.dim() == 1:
-            kernel_ms[enc] = (median_ms(lambda: codec_cuda._encode_blocks_fp64(w)), rows["compress plain"])
-            kernel_ms[dec] = (median_ms(lambda: codec_cuda._decode_blocks_fp64(sl, shape[0])),
-                              rows["decompress plain"])
-        else:
-            kernel_ms[enc] = (median_ms(lambda: codec_cuda._encode_interior_fp64(w)), rows["compress plain"])
-            kernel_ms[dec] = (median_ms(lambda: codec_cuda._decode_interior_fp64(sl, shape)),
-                              rows["decompress plain"])
-        del x, w, sl
+        record_codec(x, sl, rows, label)
+        del x, sl
         torch.cuda.empty_cache()
 
     # ---- 6. the entry points on the card: Offloader, CLI, warm
@@ -729,32 +852,47 @@ def main() -> int:
     # The JSON line takes P1/P2 at 2^24 and P3 at 256^3 fp32 and 192^3 fp64.
     b24 = cuda_words(ubench.stage_data(ubench.working_shape(64, 1))).reshape(-1, HC)
     staged, limit = stages.staging(stages.placement_compute_ref(b24)), 1 + stages.ROWS * b24.shape[0]
+    # (key, size, kernel, plain version, bytes in, bytes out, the one PyTorch call that does the same or None)
+    nb24, dense_words = b24.shape[0], HC + HC // 32
+    # the floor's function needs a block's first 2688 words; its kernel stages all 4096
     timed = [("placement_floor", "2^24", lambda: stages.placement_floor(b24),
-              lambda: stages.placement_floor_ref(b24)),
+              lambda: stages.placement_floor_ref(b24), nb24 * (stages.FLOOR - stages.HEADS) * 4,
+              nb24 * stages.FLOOR * 4, None),
              ("placement_compute", "2^24", lambda: stages.placement_compute(b24),
-              lambda: stages.placement_compute_ref(b24)),
+              lambda: stages.placement_compute_ref(b24), b24.numel() * 4, nb24 * dense_words * 4, None),
              ("keep_mask", f"the 2^24 dense rows {tuple(staged.shape)}", lambda: stages.keep_mask(staged, limit),
-              lambda: stages.keep_mask_ref(staged, limit))]
+              lambda: stages.keep_mask_ref(staged, limit), staged.numel() * 4, staged.numel() * 4, None)]
     for dims, dtype in ((3, "float"), (2, "float"), (3, "double")):
         g = cuda_words(ubench.stage_data(ubench.working_shape(64, dims, dtype), dtype))
         blocks, yard = codec_torch.gather_blocks(g, g.shape), torch.empty_like(g)
         out_k, out_p = torch.full_like(g, -1), torch.full_like(g, -1)
         suffix, what = ("64" if dtype == "double" else ""), f"{'x'.join(map(str, g.shape))} {g.dtype}"
         print(f"[7 stage vs plain] copy_ at {what} (the yardstick): {median_ms(lambda: yard.copy_(g)):.4f} ms "
-              f"(median of {REPS}); device us per call: {kernel_breakdown(lambda: yard.copy_(g))} on {card}",
+              f"(median of {REPS}); device us per call: {device_us(lambda: yard.copy_(g))[1]} on {card}",
               flush=True)
+        # the library call: the grid as (blocks per axis, side) pairs, blocks' axes moved to the front
+        side, nbytes = {2: 64, 3: 16}[dims], g.numel() * g.element_size()
+        split = [e for extent in g.shape for e in (extent // side, side)]
+        perm = list(range(0, 2 * dims, 2)) + list(range(1, 2 * dims, 2))
+        out_l = torch.empty_like(g)
+
+        def library_gather(g=g, split=split, perm=perm):
+            return g.view(split).permute(perm).contiguous()
+
+        def library_scatter(b=blocks, o=out_l, split=split, perm=perm):
+            return o.view(split).permute(perm).copy_(b.view([split[i] for i in perm]))
+
+        library_scatter()
+        if max_abs_err(library_gather().reshape(-1, HC), blocks) or max_abs_err(out_l, g):
+            fail(f"the library calls beside the block moves at {what} != plain")
         timed += [(f"gather_blocks_nd{suffix}", what, lambda g=g: stages.gather_blocks_nd(g),
-                   lambda g=g: codec_torch.gather_blocks(g, g.shape)),
+                   lambda g=g: codec_torch.gather_blocks(g, g.shape), nbytes, nbytes, library_gather),
                   (f"scatter_blocks_nd{suffix}", what, lambda b=blocks, o=out_k: (stages.scatter_blocks_nd(b, o), o)[1],
-                   lambda b=blocks, o=out_p: (codec_torch.scatter_blocks(b, o.shape, o), o)[1])]
-    stage_ms = {}
-    for key, what, kernel, plain in timed:
+                   lambda b=blocks, o=out_p: (codec_torch.scatter_blocks(b, o.shape, o), o)[1], nbytes, nbytes,
+                   library_scatter)]
+    for key, what, kernel, plain, bytes_in, bytes_out, library in timed:
         hold(key, kernel(), plain(), f"{what} (phase 7)")
-        ms = (median_ms(kernel), median_ms(plain))
-        stage_ms.setdefault(key, ms)
-        print(f"[7 stage vs plain] {key} at {what}: == plain; kernel {ms[0]:.4f} ms, plain "
-              f"{ms[1]:.4f} ms (median of {REPS}); kernel's device us per call: "
-              f"{kernel_breakdown(kernel)} on {card}", flush=True)
+        record(key, what, kernel, median_ms(plain), bytes_in, bytes_out, library)
 
     if "jax" in sys.modules:
         fail("JAX was imported")
@@ -775,8 +913,7 @@ def main() -> int:
                "decode64_nd": ("decode_fp64_nd", "ndzip_tpu_torch/csrc/decode_fp64_nd.cu",
                                "ndzip_tpu/codec_pallas.py:1978")}
     kernels = [{"name": kname, "route": "cuda", "source": src, "replaces": rep,
-                "launches": launches[k], "max_abs_err": err[k],
-                "ms": kernel_ms[k][0], "plain_ms": kernel_ms[k][1]}
+                "launches": launches[k], "max_abs_err": err[k], **kernel_rows[k]}
                for k, (kname, src, rep) in sources.items()]
     stage_sources = {"placement_floor": ("stage_placement.cu", "dev/enc_floor_probe.py:100"),
                      "placement_compute": ("stage_placement.cu", "dev/enc_floor_probe.py:100"),
@@ -786,8 +923,7 @@ def main() -> int:
                      "gather_blocks_nd64": ("stage_blocks_nd.cu", "dev/tile_xpose_probe.py:67"),
                      "scatter_blocks_nd64": ("stage_blocks_nd.cu", "dev/tile_xpose_probe.py:67")}
     kernels += [{"name": k, "route": "cuda", "source": f"ndzip_tpu_torch/csrc/{src}", "replaces": rep,
-                 "launches": stage_launches[k], "max_abs_err": serr[k],
-                 "ms": stage_ms[k][0], "plain_ms": stage_ms[k][1]}
+                 "launches": stage_launches[k], "max_abs_err": serr[k], **kernel_rows[k]}
                 for k, (src, rep) in stage_sources.items()]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,

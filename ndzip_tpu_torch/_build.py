@@ -3,9 +3,11 @@
 The sources have a plain C interface, so nvcc builds them in seconds: one
 nvcc for each ``.cu``, all started together, then one link into a shared
 library under ``build/``, named by a hash of the sources and the flags: a
-changed source builds anew, an unchanged one loads what is there. There is
-no fallback. If nvcc is missing or fails, ``load`` raises with its output,
-and nothing is built when this module is imported.
+changed source builds anew, an unchanged one loads what is there. What ptxas
+says of each kernel (registers, shared memory, spills) is kept beside the
+library (``ptxas_report``). There is no fallback. If nvcc is missing or
+fails, ``load`` raises with its output, and nothing is built when this
+module is imported.
 """
 
 from __future__ import annotations
@@ -22,18 +24,21 @@ from pathlib import Path
 CSRC = Path(__file__).parent / "csrc"
 BUILD = Path(__file__).parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC"]
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I64 = ctypes.c_int64
 #: C entry points and their arguments (see the .cu files).
 SIGNATURES = {
-    # words, num_hc, border, stream, lengths, length, cuda stream
+    # words, num_hc, border, stream, status (num_hc + 1 64-bit words), length, cuda stream
     "ndzip_encode_fp32": [_P, _I64, _I64, _P, _P, _P, _P],
     # stream, size, num_hc, border, out, cuda stream
     "ndzip_decode_fp32": [_P, _I64, _I64, _I64, _P, _P],
-    # words, dims, e0, e1, e2 (the shape padded in front with 1s), stream, lengths, length,
-    # cuda stream
+    # the CTAs of the 1D fp32 kernels that one SM holds, or minus a CUDA error
+    "ndzip_encode_fp32_ctas_per_sm": [],
+    "ndzip_decode_fp32_ctas_per_sm": [],
+    # words, dims, e0, e1, e2 (the shape padded in front with 1s), stream, lengths (num_hc words
+    # of scratch), length, cuda stream
     "ndzip_encode_fp32_nd": [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P],
     # stream, size, dims, e0, e1, e2, out, cuda stream
     "ndzip_decode_fp32_nd": [_P, _I64, _I64, _I64, _I64, _I64, _P, _P],
@@ -73,6 +78,12 @@ def library_path() -> Path:
     return BUILD / f"libndzip_cuda_{h.hexdigest()[:16]}.so"
 
 
+def ptxas_report() -> str:
+    """What ``ptxas -v`` printed when the library was built, one nvcc after
+    the other: per kernel its registers, shared memory and spills."""
+    return build().with_suffix(".ptxas.txt").read_text()
+
+
 def build() -> Path:
     """Compile the sources unless a library built from them exists."""
     lib = library_path()
@@ -90,9 +101,10 @@ def build() -> Path:
             cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)]
             procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
                                                 text=True)))
-        failed = []
+        failed, report = [], []
         for cmd, proc in procs:
             _, err = proc.communicate()
+            report.append(err)
             if proc.returncode != 0:
                 failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{err}")
         so = os.path.join(tmp, lib.name)
@@ -103,6 +115,7 @@ def build() -> Path:
                 failed.append(f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{proc.stderr}")
         if failed:
             raise RuntimeError("\n".join(failed))
+        lib.with_suffix(".ptxas.txt").write_text("".join(report))
         os.replace(so, lib)  # atomic: another process never loads half a library
     return lib
 

@@ -8,11 +8,10 @@ Backends, all of which give the same stream byte for byte:
 * ``cuda``: the CUDA kernels of ``codec_cuda`` on the first card; raises
   RuntimeError when ``torch.cuda.is_available()`` is false;
 * ``torch``: the plain PyTorch versions of ``codec_torch`` on the CPU;
-* ``golden`` and ``cpu``/``native``: ``ndzip_tpu.golden`` and
-  ``ndzip_tpu.native``, numpy-only;
-* ``auto``: ``cuda`` where a GPU is present, else ``cpu`` where
-  ``ndzip_tpu.native`` is available, else ``golden``
-  (``ndzip_tpu/api.py:214-225``).
+* ``golden``: the numpy reference of ``golden``;
+* ``cpu``/``native``: the C++ codec under ``native/``, through ``native``;
+* ``auto``: ``cuda`` where a GPU is present, else ``cpu`` where the native
+  codec builds, else ``golden`` (``ndzip_tpu/api.py:214-225``).
 
 The JAX package's ``sharded`` backend has no counterpart yet (multi-GPU is a
 later part of the port), and asking for it raises "unknown backend".
@@ -20,14 +19,105 @@ later part of the port), and asking for it raises "unknown backend".
 
 from __future__ import annotations
 
+from dataclasses import dataclass
+
 import numpy as np
 import torch
 
-from ndzip_tpu import format as fmt
-from ndzip_tpu.api import (Compressor, CompressorRequirements, Decompressor, KernelTiming,  # noqa: F401
-                           _GoldenCompressor, _GoldenDecompressor, _NativeCompressor, _NativeDecompressor)
+from . import _build, codec_cuda, codec_torch, golden, interop, native, utils
+from . import format as fmt
 
-from . import _build, codec_cuda, codec_torch, interop, utils
+
+class CompressorRequirements:
+    """ndzip.hh:255-269: the planned shapes of one dimensionality and the
+    largest block count among them."""
+
+    def __init__(self, *shapes):
+        self.dims = None
+        self.max_num_hypercubes = 0
+        self.shapes = []
+        for s in shapes:
+            self.include(s)
+
+    def include(self, shape):
+        shape = tuple(shape)
+        fmt.validate_shape(shape)
+        if self.dims is None:
+            self.dims = len(shape)
+        elif self.dims != len(shape):
+            raise ValueError("all shapes in requirements must share dimensionality")
+        self.shapes.append(shape)
+        self.max_num_hypercubes = max(self.max_num_hypercubes, fmt.num_hypercubes(shape))
+        return self
+
+
+@dataclass
+class KernelTiming:
+    """Most recent duration of each call in ns; -1 when not measured."""
+
+    compress_ns: int = -1
+    decompress_ns: int = -1
+
+
+class _Codec:
+    """What a compressor and a decompressor are made for: a dtype and a
+    dimensionality."""
+
+    def __init__(self, dtype, dims):
+        self.dtype = np.dtype(dtype)
+        self.word_bits = fmt.word_bits_for_dtype(self.dtype)
+        if not 1 <= dims <= fmt.MAX_DIMENSIONALITY:
+            raise ValueError(f"dims must be 1..{fmt.MAX_DIMENSIONALITY}")
+        self.dims = dims
+
+
+class Compressor(_Codec):
+    def _check(self, data):
+        if data.ndim != self.dims:
+            raise ValueError(
+                f"data dimensionality {data.ndim} does not match compressor dimensionality {self.dims}")
+        if np.dtype(data.dtype) != self.dtype:
+            raise ValueError(f"data dtype {data.dtype} != compressor dtype {self.dtype}")
+
+    def compress(self, data) -> tuple[np.ndarray, int]:
+        raise NotImplementedError
+
+
+class Decompressor(_Codec):
+    def decompress(self, stream, shape) -> np.ndarray:
+        raise NotImplementedError
+
+
+class _GoldenCompressor(Compressor):
+    def compress(self, data):
+        data = np.ascontiguousarray(data)
+        self._check(data)
+        return golden.compress(data)
+
+
+class _GoldenDecompressor(Decompressor):
+    def decompress(self, stream, shape):
+        return golden.decompress(np.asarray(stream), tuple(shape), self.dtype)
+
+
+class _NativeCompressor(Compressor):
+    def __init__(self, dtype, dims, threads=1):
+        super().__init__(dtype, dims)
+        self.threads = threads
+
+    def compress(self, data):
+        data = np.ascontiguousarray(data)
+        self._check(data)
+        return native.compress(data, threads=self.threads)
+
+
+class _NativeDecompressor(Decompressor):
+    def __init__(self, dtype, dims, threads=1):
+        super().__init__(dtype, dims)
+        self.threads = threads
+
+    def decompress(self, stream, shape):
+        return native.decompress(np.asarray(stream), tuple(shape), self.dtype, threads=self.threads)
 
 
 def _require_gpu():
@@ -107,8 +197,6 @@ def _resolve_backend(backend: str) -> str:
         return backend
     if torch.cuda.is_available():
         return "cuda"
-    from ndzip_tpu import native
-
     return "cpu" if native.available() else "golden"
 
 

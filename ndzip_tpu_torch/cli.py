@@ -6,7 +6,7 @@
     python -m ndzip_tpu_torch.cli -d -n 512 512 512 -t float -e cuda -i out.ndz -o back.f32
 
 A file holding several arrays of the given extent is processed chunk by
-chunk (compress.cc:17-86), through ``ndzip_tpu.io``'s stdio or mmap streams
+chunk (compress.cc:17-86), through ``io``'s stdio or mmap streams
 and ``api.make_offloader``. The output is byte for byte that of
 ``python -m ndzip_tpu.cli -e golden``. Prints the compression ratio and the
 codec's time to stderr, as the reference does (compress.cc:48-56).
@@ -19,10 +19,9 @@ import sys
 
 import numpy as np
 
-from ndzip_tpu import format as fmt
-from ndzip_tpu import io as ndz_io
-
 from . import api
+from . import format as fmt
+from . import io as ndz_io
 
 
 def build_parser() -> argparse.ArgumentParser:

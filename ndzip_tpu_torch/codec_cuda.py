@@ -42,9 +42,8 @@ import math
 
 import torch
 
-from ndzip_tpu import format as fmt
-
 from . import _build
+from . import format as fmt
 from .codec_torch import HC, as_words, output_dtype
 
 #: launches of each kernel wrapper since the count was last set to 0
@@ -90,10 +89,11 @@ def _encode_blocks_fp32(words: torch.Tensor):
         raise ValueError("words must be 16-byte aligned")
     lib = _build.load()
     stream = torch.empty(fmt.compressed_bound_u32((n,), 32), dtype=torch.int32, device=words.device)
-    lengths = torch.empty(num_hc, dtype=torch.int32, device=words.device)
+    # the look-back's status words and ticket: this call's own, cleared by the launch
+    status = torch.empty(num_hc + 1, dtype=torch.int64, device=words.device)
     length = torch.empty((), dtype=torch.int32, device=words.device)
     _launch(lib.ndzip_encode_fp32, words, words.data_ptr(), num_hc, n - num_hc * HC,
-            stream.data_ptr(), lengths.data_ptr(), length.data_ptr())
+            stream.data_ptr(), status.data_ptr(), length.data_ptr())
     LAUNCHES["encode"] += 1
     return stream, length
 
@@ -101,7 +101,8 @@ def _encode_blocks_fp32(words: torch.Tensor):
 def _decode_blocks_fp32(stream: torch.Tensor, n: int) -> torch.Tensor:
     """Decode an int32 stream (header from word 0) into (n,) int32 words on
     the card, n >= 4096. Reads only the words each block owns, so the stream
-    needs no padding and what lies past its length does not matter."""
+    needs no padding, may start at any word of its storage (a slice), and
+    what lies past its length does not matter."""
     _check_cuda_words("stream", stream)
     num_hc = n // HC
     if num_hc == 0:

@@ -26,8 +26,7 @@ import math
 import numpy as np
 import torch
 
-from ndzip_tpu import format as fmt
-
+from . import format as fmt
 from .ops import bitops
 
 HC = fmt.HC_SIZE                   # words per block

@@ -295,4 +295,301 @@ scan_lengths(const uint32_t* __restrict__ lengths, uint64_t n, uint64_t border,
     }
 }
 
+// ------------------------------------------------------------------------
+// Pieces of the one-pass 1D encoder and the run decoder (encode_fp32.cu,
+// decode_fp32.cu). Both kernels run about as many instructions as the SMs
+// can take in the time their bytes need, so these count instructions.
+
+// warp_transpose_bits in 13 instructions a chunk instead of about 30: what a
+// lane does in each round depends only on its lane number, so it is set up
+// once a thread. The rounds at distances 16 and 8 move whole bytes (one byte
+// permute each); the rounds at 4, 2 and 1 rotate the partner's word, left in
+// the upper lane of a pair and right in the lower, and merge under a mask
+// (the bits a rotate wraps around fall where the mask drops them).
+struct TransposeLane {
+    uint32_t perm16, perm8;        // byte selectors of the rounds at 16 and 8
+    uint32_t rot4, rot2, rot1;     // left rotates of the partner's word
+    uint32_t keep4, keep2, keep1;  // the bits a lane keeps of its own word
+
+    __device__ __forceinline__ explicit TransposeLane(int lane)
+        : perm16(lane & 16 ? 0x5410u : 0x3276u), perm8(lane & 8 ? 0x6240u : 0x3715u),
+          rot4(lane & 4 ? 4 : 28), rot2(lane & 2 ? 2 : 30), rot1(lane & 1 ? 1 : 31),
+          keep4(lane & 4 ? 0x0f0f0f0fu : 0xf0f0f0f0u), keep2(lane & 2 ? 0x33333333u : 0xccccccccu),
+          keep1(lane & 1 ? 0x55555555u : 0xaaaaaaaau) {}
+
+    __device__ __forceinline__ uint32_t operator()(uint32_t x) const {
+        x = __byte_perm(x, __shfl_xor_sync(kFull, x, 16), perm16);
+        x = __byte_perm(x, __shfl_xor_sync(kFull, x, 8), perm8);
+        uint32_t p = __shfl_xor_sync(kFull, x, 4);
+        x = (x & keep4) | (__funnelshift_l(p, p, rot4) & ~keep4);
+        p = __shfl_xor_sync(kFull, x, 2);
+        x = (x & keep2) | (__funnelshift_l(p, p, rot2) & ~keep2);
+        p = __shfl_xor_sync(kFull, x, 1);
+        return (x & keep1) | (__funnelshift_l(p, p, rot1) & ~keep1);
+    }
+};
+
+// A warp's 16 chunks lie in 528 consecutive slots of the padded block, chunk
+// k's word `lane` at chunk_slots(x, warp, lane)[33 * k].
+constexpr int kChunkStride = 33;
+__device__ __forceinline__ uint32_t* chunk_slots(uint32_t* x, int warp, int lane) {
+    return x + pad(32 * kChunksPerWarp * warp) + lane;
+}
+
+// ------------------------------------------------------------------------
+// One-pass encode (encode_fp32.cu): a block's offset by decoupled look-back,
+// its run compacted in shared memory and stored in whole lines.
+
+// One 64-bit status word a block: a flag in the top two bits, a count of body
+// words in the low 32 (header entries are u32). Flag and value travel in one
+// word, so one load or store carries both and no fence is needed. 0: nothing
+// published yet (the array is cleared before the launch).
+constexpr uint64_t kStatusAggregate = 1ull << 62;  // value = this block's length
+constexpr uint64_t kStatusInclusive = 2ull << 62;  // value = the lengths of blocks 0 .. b
+constexpr int kRunMax = kChunks + kHcSize;         // most words a block's run can hold
+
+// Loads and stores of status words at the device's scope: served by L2,
+// never by a stale L1 line.
+__device__ __forceinline__ uint64_t load_status(const uint64_t* p) {
+    uint64_t v;
+    asm volatile("ld.relaxed.gpu.global.u64 %0, [%1];" : "=l"(v) : "l"(p) : "memory");
+    return v;
+}
+__device__ __forceinline__ void store_status(uint64_t* p, uint64_t v) {
+    asm volatile("st.relaxed.gpu.global.u64 [%0], %1;" ::"l"(p), "l"(v) : "memory");
+}
+
+struct EncodeRunShared {
+    uint32_t x[kPadded];
+    uint32_t run[kRunMax];        // the block's stream words: 128 heads, then the nonzero words
+    uint32_t warp_count[kWarps];  // nonzero words of each warp's 16 chunks
+    uint32_t block;               // the CTA's ticket
+    uint32_t length;              // words of the run
+    uint32_t exclusive;           // body words of all blocks before this one
+};
+
+// The CTA's block: a ticket, not blockIdx.x, so that every block with a lower
+// index belongs to a CTA that has started, and a block never waits for one
+// that is not resident. Ends with a barrier.
+__device__ __forceinline__ uint64_t take_ticket(uint32_t* counter, uint32_t* slot) {
+    if (threadIdx.x == 0) *slot = atomicAdd(counter, 1u);
+    __syncthreads();
+    return *slot;
+}
+
+// The sum of the lengths of blocks 0 .. b-1, b >= 1, for one whole warp: it
+// reads its predecessors' status words 32 at a time, nearest first, waits
+// until each has published, and stops at the nearest inclusive one. No block
+// waits for the sum of the block before it, only for its own length.
+__device__ __forceinline__ uint32_t look_back(const uint64_t* status, uint64_t b, int lane) {
+    uint32_t exclusive = 0;
+    for (int64_t base = static_cast<int64_t>(b) - 1;; base -= 32) {
+        const int64_t i = base - lane;
+        uint64_t v;
+        do {
+            v = i >= 0 ? load_status(status + i) : kStatusInclusive;  // before block 0: an inclusive sum of 0
+        } while (__any_sync(kFull, (v >> 62) == 0));
+        const uint32_t inclusive = __ballot_sync(kFull, (v >> 62) == 2);
+        const uint32_t value = static_cast<uint32_t>(v);
+        if (inclusive) {
+            const int nearest = __ffs(inclusive) - 1;
+            return exclusive + __reduce_add_sync(kFull, lane <= nearest ? value : 0u);
+        }
+        exclusive += __reduce_add_sync(kFull, value);
+    }
+}
+
+// The encoder's work after the transform, in one pass (s.x holds block b's
+// transformed words and a barrier has passed). First the count: a chunk's
+// head is the OR of its words before the transpose and its count that OR's
+// popcount, so the length is known, and published as the block's aggregate,
+// before any transpose. Then each warp transposes its 16 chunks and compacts
+// their nonzero words into s.run from its own start, the sum of the counts
+// of the warps before it. Last, when its predecessors have long published,
+// warp 0 looks back for the offset, publishes the inclusive sum and writes
+// header[b], and the whole CTA stores the run at num_hc + s.exclusive, a warp
+// on one 128-byte line at a time. On return s.length and s.exclusive are set
+// for all threads.
+__device__ __forceinline__ void encode_run(EncodeRunShared& s, uint64_t b, uint64_t num_hc,
+                                           uint64_t* status, uint32_t* __restrict__ stream) {
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const uint32_t* mine = chunk_slots(s.x, warp, lane);
+    uint32_t count = 0;
+#pragma unroll
+    for (int k = 0; k < kChunksPerWarp; ++k) {
+        const uint32_t head = __reduce_or_sync(kFull, mine[kChunkStride * k]);
+        count += __popc(head);
+        if (lane == 0) s.run[kChunksPerWarp * warp + k] = head;
+    }
+    if (lane == 0) s.warp_count[warp] = count;
+    __syncthreads();
+    uint32_t at = kChunks, length = kChunks;  // where this warp's words go in the run; the run's length
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+        const uint32_t n = s.warp_count[w];
+        if (w < warp) at += n;
+        length += n;
+    }
+    if (t == 0) store_status(status + b, (b ? kStatusAggregate : kStatusInclusive) | length);
+
+    const TransposeLane transpose(lane);
+    const uint32_t below = lanemask_lt(lane);
+#pragma unroll 8
+    for (int k = 0; k < kChunksPerWarp; ++k) {
+        const uint32_t v = transpose(mine[kChunkStride * k]);
+        const uint32_t nz = __ballot_sync(kFull, v != 0);
+        const uint32_t slot = at + __popc(nz & below);
+        if (v) s.run[slot] = v;
+        at += __popc(nz);
+    }
+    if (warp == 0) {
+        const uint32_t exclusive = b ? look_back(status, b, lane) : 0u;
+        if (lane == 0) {
+            const uint32_t inclusive = exclusive + length;
+            if (b) store_status(status + b, kStatusInclusive | inclusive);
+            stream[b] = inclusive;
+            s.exclusive = exclusive;
+            s.length = length;
+        }
+    }
+    __syncthreads();
+
+    uint32_t* dst = stream + num_hc + s.exclusive;
+    const int skew = static_cast<int>((reinterpret_cast<uintptr_t>(dst) >> 2) & 31);  // words past a line's start
+    for (int i = t - skew; i < static_cast<int>(length); i += kThreads)
+        if (i >= 0) dst[i] = s.run[i];
+}
+
+// ------------------------------------------------------------------------
+// Decode from a run in shared memory (decode_fp32.cu): a block's stream words
+// are one contiguous run, [start, start + length) with start = num_hc +
+// header[b-1] and length = header[b] - header[b-1], so one bulk copy (TMA's
+// 1D form, completing on an mbarrier) brings them in and the heads, the
+// 128-count scan and the rank gather read shared memory.
+
+__device__ __forceinline__ uint32_t shared_address(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbarrier_init(uint64_t* bar, uint32_t arrivals) {
+    asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(shared_address(bar)), "r"(arrivals) : "memory");
+}
+
+// After the barriers are initialised and before any thread or copy uses them.
+__device__ __forceinline__ void mbarrier_init_fence() {
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Arrive and announce `bytes` of bulk copies that will complete on the barrier.
+__device__ __forceinline__ void mbarrier_arrive_expect(uint64_t* bar, uint32_t bytes) {
+    asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(shared_address(bar)), "r"(bytes)
+                 : "memory");
+}
+
+// Wait until the barrier's phase of the given parity has completed.
+__device__ __forceinline__ void mbarrier_wait(uint64_t* bar, uint32_t parity) {
+    uint32_t done;
+    do {
+        asm volatile(
+            "{\n"
+            ".reg .pred p;\n"
+            "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+            "selp.u32 %0, 1, 0, p;\n"
+            "}"
+            : "=r"(done)
+            : "r"(shared_address(bar)), "r"(parity)
+            : "memory");
+    } while (!done);
+}
+
+// `bytes` from global to shared memory, both 16-byte aligned, bytes a multiple
+// of 16, completing on the barrier.
+__device__ __forceinline__ void bulk_copy_to_shared(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+    asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
+                     shared_address(dst)),
+                 "l"(src), "r"(bytes), "r"(shared_address(bar))
+                 : "memory");
+}
+
+constexpr int kRunSlots = kRunMax + 4;  // a run and its skew of 0-3 words, 16-byte multiples
+
+// One run buffer: word i of the run is words[skew + i] for i < avail, and 0
+// past avail (what lies past the stream's size reads as 0).
+struct RunBuffer {
+    alignas(16) uint32_t words[kRunSlots];
+    uint32_t skew, avail;
+};
+
+// For one thread: start the copy of block b's run into `buf`, to complete on
+// `bar` (one arrival). h0 and h1 are header[b-1] (0 for b = 0) and header[b].
+// A damaged header cannot fault: the length is clamped to 128 .. 4224 (a
+// header that decreases gives a huge unsigned difference) and the run to the
+// stream's size. The bulk copy needs 16-byte aligned addresses: it takes the
+// aligned window around the run, and the run's skew in it, 0-3 words, goes
+// into the shared-memory index. The stream's base may itself lie at any word
+// (a slice), so windows are aligned in memory, not in stream indices. A
+// window never leaves [0, size): where rounding would, at the stream's first
+// or last words, the bulk copy stops at the aligned boundary inside and the
+// at most three words beyond come by plain loads.
+__device__ __forceinline__ void start_run_copy(const uint32_t* __restrict__ stream, uint64_t size,
+                                               uint64_t num_hc, uint32_t h0, uint32_t h1, RunBuffer& buf,
+                                               uint64_t* bar) {
+    uint32_t length = h1 - h0;
+    length = length < kChunks ? kChunks : length > kRunMax ? kRunMax : length;
+    const int64_t n = static_cast<int64_t>(size), start = static_cast<int64_t>(num_hc) + h0;
+    const int64_t avail = start < n ? (n - start < length ? n - start : length) : 0;
+    const int64_t base = (reinterpret_cast<uintptr_t>(stream) >> 2) & 3;  // the stream's own skew in memory
+    const int64_t skew = (start + base) & 3, end = start + avail;
+    buf.skew = static_cast<uint32_t>(skew);
+    buf.avail = static_cast<uint32_t>(avail);
+    // the aligned window [lo, hi) in stream indices, cut to whole 16 bytes inside [0, size)
+    int64_t lo = start - skew, hi = end + ((4 - ((end + base) & 3)) & 3);
+    if (lo < 0) lo += 4;
+    if (hi > n) hi -= 4;
+    uint32_t* run = buf.words + skew - start;  // run[w]: the slot of stream word w
+    uint32_t bytes = 0;
+    if (hi > lo) {
+        bytes = static_cast<uint32_t>(hi - lo) * 4;
+        for (int64_t w = start; w < lo; ++w) run[w] = stream[w];
+        for (int64_t w = hi; w < end; ++w) run[w] = stream[w];
+    } else {
+        for (int64_t w = start; w < end; ++w) run[w] = stream[w];  // a run inside one window: under 8 words
+    }
+    mbarrier_arrive_expect(bar, bytes);
+    if (bytes) bulk_copy_to_shared(run + lo, stream + lo, bytes, bar);
+}
+
+// The decoders' work before the inverse transform, from a run in shared
+// memory (the copy has completed): expand each chunk's nonzero words (rank of
+// a word = popcount of the present bits below it) and transpose it back into
+// x. The heads are read where they lie, at the run's start. A warp finds the
+// start of its 16 chunks itself, from a scan of all 128 heads' popcounts,
+// four a lane, and then counts on: no shared scan, no barrier before the
+// expansion. Words past buf.avail read as 0. Ends with a barrier.
+__device__ __forceinline__ void expand_run(const RunBuffer& buf, uint32_t* x) {
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const uint32_t* run = buf.words + buf.skew;
+    const uint32_t avail = buf.avail;
+    uint32_t four = 0;  // the words of chunks 4 * lane .. 4 * lane + 3
+#pragma unroll
+    for (int k = 0; k < 4; ++k) four += 4 * lane + k < avail ? __popc(run[4 * lane + k]) : 0;
+    const uint32_t before = warp_inclusive_scan(four, lane) - four;
+    uint32_t at = kChunks + __shfl_sync(kFull, before, kChunksPerWarp / 4 * warp);
+
+    const TransposeLane transpose(lane);
+    const uint32_t below = lanemask_lt(lane);
+    uint32_t* mine = chunk_slots(x, warp, lane);
+#pragma unroll 8
+    for (int k = 0; k < kChunksPerWarp; ++k) {
+        const uint32_t c = kChunksPerWarp * warp + k;
+        const uint32_t present = c < avail ? __brev(run[c]) : 0u;  // bit i <=> word i is in the stream
+        const uint32_t i = at + __popc(present & below);
+        const uint32_t v = ((present >> lane) & 1u) && i < avail ? run[i] : 0u;
+        mine[kChunkStride * k] = transpose(v);
+        at += __popc(present);
+    }
+    __syncthreads();
+}
+
 }  // namespace ndzip

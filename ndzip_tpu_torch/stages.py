@@ -25,9 +25,8 @@ from __future__ import annotations
 
 import torch
 
-from ndzip_tpu import format as fmt
-
 from . import _build
+from . import format as fmt
 from .codec_cuda import _check_cuda_words, _extents, _launch
 from .codec_torch import HC, encode_blocks_dense
 

@@ -35,9 +35,8 @@ import sys
 import numpy as np
 import torch
 
-from ndzip_tpu import format as fmt
-
 from . import codec_cuda, codec_torch, interop, stages, utils
+from . import format as fmt
 from .codec_torch import HC
 from .ops import bitops
 

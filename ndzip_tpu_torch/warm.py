@@ -24,9 +24,8 @@ import time
 
 import torch
 
-from ndzip_tpu import format as fmt
-
 from . import _build, codec_cuda
+from . import format as fmt
 
 
 def _parse_shape(s: str) -> tuple:

@@ -110,7 +110,7 @@ def test_auto_without_a_gpu_resolves_to_a_host_codec(no_gpu, monkeypatch):
     data = np.ones((70, 66), np.float64)
     stream, _ = off.compress(data)
     assert np.array_equal(off.decompress(stream, data.shape), data)
-    monkeypatch.setattr(native, "available", lambda: False)
+    monkeypatch.setattr(api.native, "available", lambda: False)
     assert api.make_offloader("auto", np.float32, 1).backend == "golden"
 
 

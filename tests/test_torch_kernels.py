@@ -11,7 +11,10 @@ JAX versions take (lo, hi) u32 planes (``interop.planes_from_words``). On a
 card (marker ``cuda``, skipped elsewhere): the CUDA kernels against the
 plain versions and against ``golden`` on chip_smoke.py's phase-3 cases,
 exact: the kernel's stream is golden's byte for byte, and the decode kernel
-gives back the input from golden's stream. Run those on the card
+gives back the input from golden's stream; the 1D encoder also on inputs
+that stress its look-back, many times and on two CUDA streams, and the 1D
+decoder on stream views at any word offset, without slack and truncated.
+Run those on the card
 with ``NDZIP_TPU_TESTS_TPU=1 python -m pytest tests/test_torch_kernels.py -m cuda``
 (the variable keeps tests/conftest.py from setting up JAX, which the port's
 GPU machines need not have).
@@ -128,6 +131,83 @@ def test_cuda_kernels_match_plain(cuda, label):
     g_out = codec_cuda._decode_blocks_fp32(torch.from_numpy(g_stream.view(np.int32)).to(cuda), n)
     torch.cuda.synchronize()
     assert torch.equal(g_out, w)
+
+
+def lookback_cases():
+    """Inputs that stress the 1D encoder's look-back: one block, every length
+    at its minimum (128) and at its maximum (4224), a border of 4095 words,
+    and more blocks than the card holds CTAs at once."""
+    rng = np.random.default_rng(11)
+    return {
+        "one block": rng.standard_normal(HC).astype(np.float32),
+        "one zero block": np.zeros(HC, np.float32),
+        "all zeros, 1024 blocks": np.zeros(HC * 1024, np.float32),
+        "random bits, 1024 blocks + 5": rng.integers(0, 2**32, HC * 1024 + 5, dtype=np.uint64).astype(np.uint32),
+        "3 blocks + 4095": rng.standard_normal(HC * 3 + 4095).astype(np.float32),
+        "2048 blocks + 17": (np.sin(np.arange(HC * 2048 + 17, dtype=np.float32) * 1e-4)
+                             + 1e-3 * rng.standard_normal(HC * 2048 + 17).astype(np.float32)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(lookback_cases()))
+def test_cuda_encode_lookback_is_golden(cuda, label):
+    """The one-pass encoder's stream is golden's byte for byte, on the first
+    call, on 20 calls in a row and on calls on two CUDA streams at once: a
+    call's status words are its own."""
+    data = lookback_cases()[label]
+    g_stream, g_length = golden.compress(data.view(np.float32))
+    want = g_stream.tobytes()
+    w = torch.from_numpy(data.view(np.int32)).to(cuda)
+    side = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    calls = [codec_cuda._encode_blocks_fp32(w) for _ in range(20)]
+    for i in range(6):
+        with torch.cuda.stream(side[i % 2]):
+            calls.append(codec_cuda._encode_blocks_fp32(w))
+    torch.cuda.synchronize()
+    for stream, length in calls:
+        assert int(length) == g_length
+        assert stream[: int(length)].cpu().numpy().view(np.uint32).tobytes() == want
+    if label.startswith("all zeros"):
+        assert np.all(np.diff(g_stream[:1024].astype(np.int64)) == 128)
+    if label.startswith("random bits"):
+        assert np.all(np.diff(g_stream[:1024].astype(np.int64)) == HC + HC // 32)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("label", ["one block", "3 blocks + 4095", "2048 blocks + 17"])
+def test_cuda_decode_of_a_stream_view(cuda, label, offset):
+    """golden's stream, exactly its length with nothing after it, as a view at
+    any word offset of its storage: the decode kernel gives back the input."""
+    data = lookback_cases()[label]
+    g_stream, _ = golden.compress(data.view(np.float32))
+    storage = torch.full((offset + g_stream.size,), -1, dtype=torch.int32, device=cuda)
+    storage[offset:] = torch.from_numpy(g_stream.view(np.int32)).to(cuda)
+    out = codec_cuda._decode_blocks_fp32(storage[offset:], data.size)
+    torch.cuda.synchronize()
+    assert out.cpu().numpy().view(np.uint32).tobytes() == data.view(np.uint32).tobytes()
+    whole = codec_cuda.decompress_device(storage[offset:], data.shape)
+    assert whole.cpu().numpy().view(np.uint32).tobytes() == data.view(np.uint32).tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ["one block", "3 blocks + 4095", "random bits, 1024 blocks + 5"])
+def test_cuda_decode_of_a_truncated_stream(cuda, label):
+    """A stream cut short does not fault, and decodes to what golden's words
+    give when the missing ones count as zeros: the plain version on the cut
+    stream with zeros after it."""
+    data = lookback_cases()[label]
+    g_stream, _ = golden.compress(data.view(np.float32))
+    num_hc, L = data.size // HC, g_stream.size
+    full = torch.from_numpy(g_stream.view(np.int32)).to(cuda)
+    for cut in sorted({num_hc, num_hc + 1, num_hc + 130, L // 2, L * 2 // 3, L - 1}):
+        zeros_past = torch.zeros(L + HC + HC // 32, dtype=torch.int32, device=cuda)
+        zeros_past[:cut] = full[:cut]
+        out = codec_cuda._decode_blocks_fp32(full[:cut].clone(), data.size)
+        torch.cuda.synchronize()
+        assert torch.equal(out[: num_hc * HC], codec_torch.decode_blocks_ref(zeros_past, num_hc).reshape(-1)), cut
 
 
 # ------------------------------------------------------------ 2D/3D

@@ -20,7 +20,8 @@ ROOT = Path(__file__).resolve().parents[1]
 MODULES = ["ndzip_tpu_torch", "ndzip_tpu_torch._build", "ndzip_tpu_torch.codec_cuda",
            "ndzip_tpu_torch.codec_torch", "ndzip_tpu_torch.interop", "ndzip_tpu_torch.ops.bitops",
            "ndzip_tpu_torch.api", "ndzip_tpu_torch.cli", "ndzip_tpu_torch.stages",
-           "ndzip_tpu_torch.ubench", "ndzip_tpu_torch.utils", "ndzip_tpu_torch.warm"]
+           "ndzip_tpu_torch.ubench", "ndzip_tpu_torch.utils", "ndzip_tpu_torch.warm",
+           "ndzip_tpu_torch.format", "ndzip_tpu_torch.golden", "ndzip_tpu_torch.io", "ndzip_tpu_torch.native"]
 
 
 def test_import_leaves_jax_out():
