@@ -6,8 +6,9 @@ line each, and any failure raises and exits nonzero:
 
 1. device: the card's name, ``nvidia-smi``'s name and power limit, versions;
 2. build: the CUDA kernels from ``ndzip_tpu_torch/csrc`` with nvcc, one nvcc
-   per source, all started together; what ``ptxas -v`` says of the two 1D fp32
-   kernels (registers, shared memory, spills) and the CTAs an SM holds of each;
+   per source, all started together; what ``ptxas -v`` says of the 1D and the
+   2D/3D fp32 kernels (registers, shared memory, spills) and the CTAs an SM
+   holds of each;
 3. each kernel against its plain PyTorch version on the card, exact: the 1D
    kernels on small fp32 1D cases (borders, zeros, incompressible bits,
    constants, one block, special floats; the decoder also on the stream
@@ -17,7 +18,11 @@ line each, and any failure raises and exits nonzero:
    the encoder also 20 times in a row and six times on two CUDA streams at
    once, every stream equal to the plain version's), the 2D/3D kernels on small grids
    (aligned and unaligned rows, borders on one or two axes, constants, random
-   bits, special floats), and one all-border grid through the glue; then the
+   bits, special floats; the same views, truncations, repeats and two CUDA
+   streams as in 1D), one all-border grid through the glue, and two bordered
+   grids through ``compress_device``/``decompress_device``: one whose border
+   needs more CTAs than the card holds at once, one with unaligned rows and a
+   border on every axis (the run must end, streams and round trips exact); then the
    four fp64 kernels on tests/test_pallas.py's fp64 shapes (an odd block
    count with the header's pad word, borders, 2D/3D) and on zeros, random
    64-bit words, a constant, special floats and one all-border grid; each
@@ -238,6 +243,24 @@ def kernel_cases() -> dict[str, np.ndarray]:
     }
 
 
+def grid_normal(rng, shape) -> np.ndarray:
+    """Normal values on a grid with a run of zeros and a repeated run."""
+    d = rng.standard_normal(shape).astype(np.float32)
+    d.reshape(-1)[:200] = 0
+    d.reshape(-1)[300:340] = d.reshape(-1)[299]
+    return d
+
+
+def nd_border_shapes() -> dict[str, tuple]:
+    """Bordered 3D grids that go through the entry points: one whose border
+    (4 Mi words, 1024 border CTAs beside 4096 blocks) needs more CTAs than an
+    H100 holds at once (6 x 132), so an encoder whose border CTAs could start
+    before its block CTAs would hang on it; and one with an odd minor extent
+    (rows not 16-byte aligned) and a border on every axis."""
+    return {"3d large border (20,1024,1024)": (20, 1024, 1024),
+            "3d odd minor extent, border on every axis (37,150,1001)": (37, 150, 1001)}
+
+
 def nd_kernel_cases() -> dict[str, np.ndarray]:
     """Small 2D/3D grids for the nd kernels: tests/test_pallas.py's shapes
     (rows 16-byte aligned or not, borders on none, one or two axes),
@@ -245,10 +268,7 @@ def nd_kernel_cases() -> dict[str, np.ndarray]:
     rng = np.random.default_rng(SEED)
 
     def normal(shape):
-        d = rng.standard_normal(shape).astype(np.float32)
-        d.reshape(-1)[:200] = 0
-        d.reshape(-1)[300:340] = d.reshape(-1)[299]
-        return d
+        return grid_normal(rng, shape)
 
     special = normal((32, 32, 48))
     flat = special.reshape(-1)
@@ -339,15 +359,17 @@ def main() -> int:
     lib_path = _build.build()
     lib = _build.load()
     print(f"[2 build] {lib_path.name} in {time.perf_counter() - t0:.2f} s", flush=True)
-    report = _build.ptxas_report().splitlines()
-    for kernel, ctas in (("encode_blocks", lib.ndzip_encode_fp32_ctas_per_sm()),
-                         ("decode_blocks", lib.ndzip_decode_fp32_ctas_per_sm())):
-        at = [i for i, line in enumerate(report) if "Compiling entry" in line and f"5ndzip13{kernel}E" in line]
-        if len(at) != 1 or ctas < 1:
-            fail(f"ptxas reported the 1D fp32 kernel {kernel} {len(at)} times, or no CTA of it fits an SM ({ctas})")
-        print(f"[2 build] ptxas -v, 1D fp32 {kernel}: "
-              + " ".join(line.replace("ptxas info    :", "").strip() for line in report[at[0] + 2: at[0] + 4])
-              + f"; {ctas} CTAs an SM", flush=True)
+    for kernel, what, ctas in (
+            ("5ndzip13encode_blocksE", "1D fp32 encode_blocks", lib.ndzip_encode_fp32_ctas_per_sm()),
+            ("5ndzip13decode_blocksE", "1D fp32 decode_blocks", lib.ndzip_decode_fp32_ctas_per_sm()),
+            ("5ndzip16encode_blocks_ndILi2E", "2D fp32 encode_blocks_nd", lib.ndzip_encode_fp32_nd_ctas_per_sm(2)),
+            ("5ndzip16encode_blocks_ndILi3E", "3D fp32 encode_blocks_nd", lib.ndzip_encode_fp32_nd_ctas_per_sm(3)),
+            ("5ndzip16decode_blocks_ndILi2E", "2D fp32 decode_blocks_nd", lib.ndzip_decode_fp32_nd_ctas_per_sm(2)),
+            ("5ndzip16decode_blocks_ndILi3E", "3D fp32 decode_blocks_nd", lib.ndzip_decode_fp32_nd_ctas_per_sm(3))):
+        lines = _build.ptxas_lines(kernel)
+        if len(lines) != 1 or ctas < 1:
+            fail(f"ptxas reported the kernel {what} {len(lines)} times, or no CTA of it fits an SM ({ctas})")
+        print(f"[2 build] ptxas -v, {what}: {lines[0].split(': ', 1)[1]}; {ctas} CTAs an SM", flush=True)
 
     err = dict.fromkeys(codec_cuda.LAUNCHES, 0)
 
@@ -449,8 +471,41 @@ def main() -> int:
         err["decode_nd"] = max(err["decode_nd"], e)
         if e or not torch.equal(out, w):
             fail(f"nd decode kernel != plain or != input on {label!r} (max_abs_err {e})")
-        print(f"[3 kernels] {label}: blocks={num_hc} length={L} nd encode == plain, "
-              f"nd decode == plain == input", flush=True)
+        # as in 1D: the decoder on views of the stream at any word offset of its storage, with
+        # nothing after the stream, and truncated (no fault; the missing words count as zeros)
+        for offset in (0, 1, 2, 3):
+            storage = torch.full((offset + L,), -1, dtype=torch.int32, device=dev)
+            storage[offset:] = ref_stream[:L]
+            e = max_abs_err(codec_cuda._decode_interior_fp32(storage[offset:], shape), w)
+            err["decode_nd"] = max(err["decode_nd"], e)
+            if e:
+                fail(f"nd decode kernel != input on {label!r}, stream[:length] at word offset {offset} of its "
+                     f"storage (max_abs_err {e})")
+        for cut in sorted({num_hc, num_hc + 1, num_hc + 130, L * 2 // 3, L - 1}):
+            zeros_past = torch.zeros_like(ref_stream)
+            zeros_past[:cut] = ref_stream[:cut]
+            out = codec_cuda._decode_interior_fp32(ref_stream[:cut].clone(), shape)
+            e = max_abs_err(codec_torch.gather_blocks(out, shape), codec_torch.decode_blocks_ref(zeros_past, num_hc, dims))
+            err["decode_nd"] = max(err["decode_nd"], e)
+            if e:
+                fail(f"nd decode kernel != plain on {label!r} truncated to {cut} of {L} words (max_abs_err {e})")
+        # the encoder again and again, and on two CUDA streams at once: a call's status words are its own
+        side = [torch.cuda.Stream(), torch.cuda.Stream()]
+        torch.cuda.synchronize()
+        again = [codec_cuda._encode_interior_fp32(w) for _ in range(20)]
+        for i in range(6):
+            with torch.cuda.stream(side[i % 2]):
+                again.append(codec_cuda._encode_interior_fp32(w))
+        torch.cuda.synchronize()
+        for i, (stream, length) in enumerate(again):
+            e = max_abs_err(stream[:L], ref_stream[:L]) if int(length) == L else -1
+            err["encode_nd"] = max(err["encode_nd"], e)
+            if e:
+                fail(f"nd encode kernel != plain on {label!r}, call {i} of 20 in a row and 6 on two CUDA streams")
+        del again
+        print(f"[3 kernels] {label}: blocks={num_hc} length={L} nd encode == plain (26 more calls, 6 of them on "
+              f"two CUDA streams), nd decode == plain == input (also at word offsets 0-3 without slack, and "
+              f"truncated)", flush=True)
 
     for label, data in fp64_kernel_cases().items():
         w = cuda_words(data)
@@ -572,6 +627,21 @@ def main() -> int:
         err[dec] = max(err[dec], e)
         if e:
             fail(f"{what}: kernel decode differs from the plain version's on the card")
+
+    # ---- 3, bordered grids through the entry points: the run must end, and be exact
+    for label, shape in nd_border_shapes().items():
+        x = torch.from_numpy(grid_normal(np.random.default_rng(SEED), shape)).to(dev)
+        num_hc = math.prod(e // 16 for e in shape)
+        border_ctas = -(-(x.numel() - num_hc * HC) // HC)
+        s, length = nt.compress_device(x)
+        L = int(length)
+        y = nt.decompress_device(s[:L], shape)
+        torch.cuda.synchronize()
+        check_cell(x, s, L, y, label)
+        print(f"[3 kernels] {label}: blocks={num_hc}, {border_ctas} border CTAs, length={L}: stream == plain, "
+              f"round trip bit-exact", flush=True)
+        del x, s, y
+    torch.cuda.empty_cache()
 
     # ---- 4. the fp32 1D path, through the public entry points
     n24, n28 = 2**24, 2**28 + 17

@@ -37,13 +37,17 @@ SIGNATURES = {
     # the CTAs of the 1D fp32 kernels that one SM holds, or minus a CUDA error
     "ndzip_encode_fp32_ctas_per_sm": [],
     "ndzip_decode_fp32_ctas_per_sm": [],
-    # words, dims, e0, e1, e2 (the shape padded in front with 1s), stream, lengths (num_hc words
-    # of scratch), length, cuda stream
+    # words, dims, e0, e1, e2 (the shape padded in front with 1s), stream, status (num_hc + 1
+    # 64-bit words), length, cuda stream
     "ndzip_encode_fp32_nd": [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P],
     # stream, size, dims, e0, e1, e2, out, cuda stream
     "ndzip_decode_fp32_nd": [_P, _I64, _I64, _I64, _I64, _I64, _P, _P],
-    # the fp64 kernels take the same arguments; words, out and sizes count u64 words,
-    # except the stream's size, which counts u32 words
+    # dims: the CTAs of the 2D or 3D fp32 kernels that one SM holds, or minus a CUDA error
+    "ndzip_encode_fp32_nd_ctas_per_sm": [_I64],
+    "ndzip_decode_fp32_nd_ctas_per_sm": [_I64],
+    # the fp64 kernels take the arguments of the fp32 ones, with num_hc words of scratch for the
+    # block lengths where those take status words; words, out and sizes count u64 words, except
+    # the stream's size, which counts u32 words
     "ndzip_encode_fp64": [_P, _I64, _I64, _P, _P, _P, _P],
     "ndzip_decode_fp64": [_P, _I64, _I64, _I64, _P, _P],
     "ndzip_encode_fp64_nd": [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P],
@@ -66,27 +70,37 @@ def _find_nvcc() -> str | None:
     return shutil.which("nvcc")
 
 
-def _sources() -> list[Path]:
-    return sorted(CSRC.glob("*.cu")) + sorted(CSRC.glob("*.cuh"))
-
-
-def library_path() -> Path:
+def library_path(csrc: Path = CSRC) -> Path:
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in _sources():
+    for src in sorted(csrc.glob("*.cu")) + sorted(csrc.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD / f"libndzip_cuda_{h.hexdigest()[:16]}.so"
 
 
-def ptxas_report() -> str:
+def ptxas_report(csrc: Path = CSRC) -> str:
     """What ``ptxas -v`` printed when the library was built, one nvcc after
     the other: per kernel its registers, shared memory and spills."""
-    return build().with_suffix(".ptxas.txt").read_text()
+    return build(csrc).with_suffix(".ptxas.txt").read_text()
 
 
-def build() -> Path:
-    """Compile the sources unless a library built from them exists."""
-    lib = library_path()
+def ptxas_lines(kernel: str, csrc: Path = CSRC) -> list[str]:
+    """ptxas's lines (registers and shared memory; stack and spills) for each
+    kernel whose mangled name contains ``kernel``, as ``name: lines``."""
+    report = ptxas_report(csrc).splitlines()
+    found = []
+    for i, line in enumerate(report):
+        if "Compiling entry" in line and kernel in line:
+            name = line.split("'")[1] if "'" in line else line
+            found.append(f"{name}: " + " ".join(r.replace("ptxas info    :", "").strip()
+                                                for r in report[i + 2: i + 4]))
+    return found
+
+
+def build(csrc: Path = CSRC) -> Path:
+    """Compile the sources of ``csrc`` (the package's own, or a directory of
+    variants of them) unless a library built from them exists."""
+    lib = library_path(csrc)
     if lib.exists():
         return lib
     nvcc = _find_nvcc()
@@ -96,7 +110,7 @@ def build() -> Path:
     BUILD.mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD) as tmp:
         objs, procs = [], []
-        for src in sorted(CSRC.glob("*.cu")):  # one nvcc per source, all started together
+        for src in sorted(csrc.glob("*.cu")):  # one nvcc per source, all started together
             objs.append(os.path.join(tmp, f"{src.stem}.o"))
             cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", objs[-1], str(src)]
             procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
@@ -120,12 +134,18 @@ def build() -> Path:
     return lib
 
 
+def load_from(csrc: Path, names=None) -> ctypes.CDLL:
+    """The library built from the sources of ``csrc``, with the signatures of
+    ``names`` (default: all) set on it."""
+    lib = ctypes.CDLL(str(build(csrc)))
+    for name in SIGNATURES if names is None else names:
+        fn = getattr(lib, name)
+        fn.argtypes = SIGNATURES[name]
+        fn.restype = ctypes.c_int
+    return lib
+
+
 @functools.cache
 def load() -> ctypes.CDLL:
     """The kernels' library, built on first use and loaded once per process."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
+    return load_from(CSRC)

@@ -10,8 +10,11 @@ Backends, all of which give the same stream byte for byte:
 * ``torch``: the plain PyTorch versions of ``codec_torch`` on the CPU;
 * ``golden``: the numpy reference of ``golden``;
 * ``cpu``/``native``: the C++ codec under ``native/``, through ``native``;
-* ``auto``: ``cuda`` where a GPU is present, else ``cpu`` where the native
-  codec builds, else ``golden`` (``ndzip_tpu/api.py:214-225``).
+* ``auto``: the backend named by the environment variable
+  ``NDZIP_TORCH_BACKEND`` where that is set (an unknown name raises like an
+  unknown ``backend``), else ``cuda`` where a GPU is present, else ``cpu``
+  where the native codec builds, else ``golden``
+  (``ndzip_tpu/api.py:214-225``).
 
 The JAX package's ``sharded`` backend has no counterpart yet (multi-GPU is a
 later part of the port), and asking for it raises "unknown backend".
@@ -19,6 +22,7 @@ later part of the port), and asking for it raises "unknown backend".
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -192,7 +196,13 @@ class _CudaDecompressor(_TorchDecompressor):
         return codec_cuda.decompress_device(stream, shape, self.dtype)
 
 
+#: the environment variable that picks the backend of ``auto``
+BACKEND_ENV = "NDZIP_TORCH_BACKEND"
+
+
 def _resolve_backend(backend: str) -> str:
+    if backend == "auto":
+        backend = os.environ.get(BACKEND_ENV, "auto")
     if backend != "auto":
         return backend
     if torch.cuda.is_available():

@@ -119,8 +119,9 @@ def _decode_blocks_fp32(stream: torch.Tensor, n: int) -> torch.Tensor:
 
 def _encode_interior_fp32(words: torch.Tensor):
     """Encode a 2D/3D grid of int32 words with at least one whole block on
-    the card: blocks read straight from the grid, border copied after them.
-    Returns ``(stream, length)`` as ``_encode_blocks_fp32``. No host sync."""
+    the card, in one launch that reads the grid once: blocks read straight
+    from the grid, border copied after them. Returns ``(stream, length)`` as
+    ``_encode_blocks_fp32``. No host sync."""
     _check_cuda_words("words", words, dims=(2, 3))
     shape = tuple(words.shape)
     num_hc = fmt.num_hypercubes(shape)
@@ -128,10 +129,11 @@ def _encode_interior_fp32(words: torch.Tensor):
         raise ValueError(f"shape {shape} has no whole block: it is all border")
     lib = _build.load()
     stream = torch.empty(fmt.compressed_bound_u32(shape, 32), dtype=torch.int32, device=words.device)
-    lengths = torch.empty(num_hc, dtype=torch.int32, device=words.device)
+    # the look-back's status words and ticket: this call's own, cleared by the launch
+    status = torch.empty(num_hc + 1, dtype=torch.int64, device=words.device)
     length = torch.empty((), dtype=torch.int32, device=words.device)
     _launch(lib.ndzip_encode_fp32_nd, words, words.data_ptr(), len(shape), *_extents(shape),
-            stream.data_ptr(), lengths.data_ptr(), length.data_ptr())
+            stream.data_ptr(), status.data_ptr(), length.data_ptr())
     LAUNCHES["encode_nd"] += 1
     return stream, length
 
@@ -139,7 +141,9 @@ def _encode_interior_fp32(words: torch.Tensor):
 def _decode_interior_fp32(stream: torch.Tensor, shape) -> torch.Tensor:
     """Decode an int32 stream into int32 words of a 2D/3D ``shape`` with at
     least one whole block on the card: blocks stored straight into the grid,
-    border placed from the stream. Reads only the words each block owns, as
+    border placed from the stream. Reads only the words each block owns, so
+    the stream needs no padding, may start at any word of its storage (a
+    slice), and what lies past its length does not matter, as for
     ``_decode_blocks_fp32``."""
     _check_cuda_words("stream", stream)
     shape = tuple(shape)
@@ -321,7 +325,9 @@ def compress_device(x: torch.Tensor):
     ``format.compressed_bound_u32(x.shape, W)`` words (W = 32 or 64),
     ``length`` its length in u32 words as an int32 device scalar, so the
     call makes no host sync. ``stream[:length]`` is byte for byte the stream
-    of ``ndzip_tpu.golden.compress``."""
+    of ``ndzip_tpu.golden.compress``. The length is an int32, so a grid
+    whose compressed bound reaches 2**31 u32 words (just under 8 GiB) raises
+    ``ValueError`` (``codec_torch.check_stream_length``)."""
     words = as_words(x)
     _check_cuda_words("x", words, dims=(1, 2, 3), dtype=words.dtype)
     if words.dtype == torch.int64:

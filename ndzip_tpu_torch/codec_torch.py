@@ -36,12 +36,22 @@ _WORDS = {torch.float32: torch.int32, torch.int32: torch.int32,
           torch.float64: torch.int64, torch.int64: torch.int64, torch.uint64: torch.int64}
 
 
-def _check_shape(shape, word_bits: int) -> None:
-    """Refuse what the codec cannot hold: 0 or more than 3 dims, or a stream
-    whose length in u32 words does not fit an int32."""
-    fmt.validate_shape(tuple(shape))
-    if fmt.compressed_bound_u32(tuple(shape), word_bits) >= 2**31:
-        raise ValueError(f"shape {tuple(shape)}: the stream length must fit an int32")
+def check_stream_length(shape, word_bits: int) -> None:
+    """Refuse what the codec cannot hold: 0 or more than 3 dims, or a grid
+    whose stream may not fit. The port carries a stream's length in u32
+    words as an int32, on the card and on the CPU, so the limit is
+    ``format.compressed_bound_u32(shape, word_bits) < 2**31``: just under
+    8 GiB of stream, a little less of input (fp32 ``(2**31,)`` and fp64
+    ``(1024, 1024, 1024)`` are past it, fp32 ``(512, 512, 2048)`` is not).
+    The format itself allows more. ``compress_device`` and
+    ``decompress_device`` call this on both paths, through ``as_words`` and
+    ``output_dtype``."""
+    shape = tuple(shape)
+    fmt.validate_shape(shape)
+    bound = fmt.compressed_bound_u32(shape, word_bits)
+    if bound >= 2**31:
+        raise ValueError(f"shape {shape}: a stream of up to {bound} u32 words does not fit the int32 "
+                         f"that holds its length (the limit is 2**31 - 1 words)")
 
 
 def as_words(x: torch.Tensor) -> torch.Tensor:
@@ -49,7 +59,7 @@ def as_words(x: torch.Tensor) -> torch.Tensor:
     float32/int32, int64 for float64/int64/uint64."""
     if x.dtype not in _WORDS:
         raise ValueError(f"compress takes float32/float64 or 32/64-bit word tensors, got {x.dtype}")
-    _check_shape(x.shape, _WORDS[x.dtype].itemsize * 8)
+    check_stream_length(x.shape, _WORDS[x.dtype].itemsize * 8)
     return x.contiguous().view(_WORDS[x.dtype])
 
 
@@ -61,7 +71,7 @@ def output_dtype(shape, dtype) -> torch.dtype:
            "float64": torch.float64, "int64": torch.int64, "uint64": torch.int64}.get(name)
     if out is None:
         raise ValueError(f"decompress gives float32/float64 or 32/64-bit words, not {name}")
-    _check_shape(shape, out.itemsize * 8)
+    check_stream_length(shape, out.itemsize * 8)
     return out
 
 

@@ -1,12 +1,13 @@
 // Pieces shared by the fp32 encode and decode kernels of the ndzip format
 // (1D in encode_fp32.cu/decode_fp32.cu, 2D/3D in encode_fp32_nd.cu/
 // decode_fp32_nd.cu): block geometry, the word transforms, the warp-wide
-// 32x32 bit transpose, the scans, the per-block encode tail and decode head
-// that follow and precede the transform, the header scan and the border map.
-// One CTA of kThreads threads works on one 4096-word block staged in shared
-// memory in the block's row-major order, so a chunk is 32 consecutive block
-// words whatever the dimensionality. Border elements are copied by border
-// CTAs after the blocks' CTAs, 4096 each, on both sides.
+// 32x32 bit transpose, the border map, the one-pass encode of a block with
+// its look-back, and the decode of a block from its run in shared memory.
+// One CTA of kThreads threads works on one 4096-word block at a time, staged
+// in shared memory in the block's row-major order, so a chunk is 32
+// consecutive block words whatever the dimensionality. Border elements are
+// copied by border CTAs, 4096 each, on both sides (the 1D encoder's last
+// block copies its short tail itself).
 #pragma once
 
 #include <cstdint>
@@ -70,21 +71,6 @@ __device__ __forceinline__ uint32_t warp_inclusive_scan(uint32_t v, int lane) {
     return v;
 }
 
-// Exclusive scan, in place, of the kChunks per-chunk counts of a block.
-// Called by all of warp 0.
-__device__ __forceinline__ void chunk_exclusive_scan(uint32_t* counts, int lane) {
-    static_assert(kChunks == 4 * 32, "each lane scans four chunks");
-    const uint32_t c0 = counts[4 * lane], c1 = counts[4 * lane + 1];
-    const uint32_t c2 = counts[4 * lane + 2], c3 = counts[4 * lane + 3];
-    const uint32_t sum = c0 + c1 + c2 + c3;
-    const uint32_t incl = warp_inclusive_scan(sum, lane);
-    const uint32_t excl = incl - sum;
-    counts[4 * lane] = excl;
-    counts[4 * lane + 1] = excl + c0;
-    counts[4 * lane + 2] = excl + c0 + c1;
-    counts[4 * lane + 3] = excl + c0 + c1 + c2;
-}
-
 // The border of a grid of 1-3 dims on its three-axis view: the shape padded
 // in front with extents of 1, each padded axis counted as covered by whole
 // blocks. In stream order (ndzip_tpu/format.py:border_slices) the border is,
@@ -105,10 +91,11 @@ struct Border {
     }
 };
 
+// The block and its heads as the placement stage keeps them (stage_placement.cu).
 struct EncodeShared {
     uint32_t x[kPadded];
     uint32_t heads[kChunks];
-    uint32_t offsets[kChunks];  // per-chunk counts, then their exclusive scan
+    uint32_t offsets[kChunks];
 };
 
 // The 1D encoders' load and transform (encode_fp32.cu; the placement stage
@@ -143,110 +130,15 @@ __device__ __forceinline__ void load_transform_1d(const uint32_t* __restrict__ b
     __syncthreads();
 }
 
-struct DecodeShared {
-    uint32_t x[kPadded];
-    uint32_t heads[kChunks];
-    uint32_t offsets[kChunks];  // per-chunk counts, then their exclusive scan
-    uint32_t partial[kThreads]; // the scans' per-thread or per-warp sums
-};
-
-// The encoders' work after the transform (s.x holds the transformed block,
-// and a barrier has passed). Without kPlace: write the block's length to
-// lengths[b], 128 heads plus its nonzero transposed words. A chunk's head is
-// the OR of its words before the transpose (golden.encode_blocks_dense), so
-// the count of nonzero transposed words is that OR's popcount, and the
-// lengths pass needs no transpose. With kPlace, once the header is written:
-// transpose each chunk, head bit (31-i) set iff transposed word i != 0,
-// scan the counts, and write the heads and nonzero words at
-// num_hc + (b ? header[b-1] : 0).
-template <bool kPlace>
-__device__ __forceinline__ void encode_chunks(EncodeShared& s, uint64_t b, uint64_t num_hc,
-                                              uint32_t* __restrict__ lengths,
-                                              uint32_t* __restrict__ stream) {
-    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-    if (!kPlace) {
-        uint32_t n = 0;
-#pragma unroll 4
-        for (int k = 0; k < kChunksPerWarp; ++k)
-            n += __popc(__reduce_or_sync(kFull, s.x[pad(32 * (warp * kChunksPerWarp + k) + lane)]));
-        if (lane == 0) s.offsets[warp] = n;
-        __syncthreads();
-        if (t == 0) {
-            uint32_t length = kChunks;
-            for (int w = 0; w < kWarps; ++w) length += s.offsets[w];
-            lengths[b] = length;
-        }
-        return;
-    }
-
-#pragma unroll 4
-    for (int k = 0; k < kChunksPerWarp; ++k) {
-        const int c = warp * kChunksPerWarp + k;
-        const uint32_t v = warp_transpose_bits(s.x[pad(32 * c + lane)], lane);
-        s.x[pad(32 * c + lane)] = v;
-        const uint32_t nz = __ballot_sync(kFull, v != 0);
-        if (lane == 0) {
-            s.heads[c] = __brev(nz);
-            s.offsets[c] = __popc(nz);
-        }
-    }
-    __syncthreads();
-    if (warp == 0) chunk_exclusive_scan(s.offsets, lane);
-    __syncthreads();
-
-    uint32_t* dst = stream + num_hc + (b ? stream[b - 1] : 0u);
-    if (t < kChunks) dst[t] = s.heads[t];
-#pragma unroll 4
-    for (int k = 0; k < kChunksPerWarp; ++k) {
-        const int c = warp * kChunksPerWarp + k;
-        const uint32_t v = s.x[pad(32 * c + lane)];
-        const uint32_t nz = __ballot_sync(kFull, v != 0);
-        if (v) dst[kChunks + s.offsets[c] + __popc(nz & lanemask_lt(lane))] = v;
-    }
-}
-
-// The decoders' work before the inverse transform: read block b's heads from
-// its start num_hc + (b ? header[b-1] : 0), expand each chunk's nonzero words
-// (rank of a word = popcount of the present bits below it, chunk start =
-// exclusive scan of the heads' popcounts) and transpose it back into s.x.
-// Reads only the words the block owns, each clamped to the stream's size.
-// Ends with a barrier.
-__device__ __forceinline__ void expand_chunks(DecodeShared& s, const uint32_t* __restrict__ stream,
-                                              uint64_t size, uint64_t num_hc, uint64_t b) {
-    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-    const uint64_t start = num_hc + (b ? load_clamped(stream, size, b - 1) : 0u);
-    if (t < kChunks) {
-        const uint32_t h = load_clamped(stream, size, start + t);
-        s.heads[t] = h;
-        s.offsets[t] = __popc(h);
-    }
-    __syncthreads();
-    if (warp == 0) chunk_exclusive_scan(s.offsets, lane);
-    __syncthreads();
-
-    const uint64_t body = start + kChunks;
-#pragma unroll 4
-    for (int k = 0; k < kChunksPerWarp; ++k) {
-        const int c = warp * kChunksPerWarp + k;
-        const uint32_t present = __brev(s.heads[c]);  // bit i <=> word i is in the stream
-        const uint32_t v = (present >> lane) & 1u
-            ? load_clamped(stream, size, body + s.offsets[c] + __popc(present & lanemask_lt(lane)))
-            : 0u;
-        s.x[pad(32 * c + lane)] = warp_transpose_bits(v, lane);
-    }
-    __syncthreads();
-}
-
 // Border elements [c * 4096, (c + 1) * 4096), the share of border CTA c.
 __device__ __forceinline__ uint64_t border_end(const Border& border, uint64_t c) {
     return (c + 1) * kHcSize < border.count ? (c + 1) * kHcSize : border.count;
 }
 
-// A border CTA of the encoders' placement pass: its share of the border of
-// `words` to the stream, after the last body word (num_hc + header[num_hc-1]).
+// A border CTA of the 2D/3D encoder: its share of the border of `words` to
+// `dst`, the stream from the word after the last body word on.
 __device__ __forceinline__ void encode_border(const uint32_t* __restrict__ words, const Border& border,
-                                              uint64_t num_hc, uint64_t c, uint32_t* __restrict__ stream) {
-    uint32_t* dst = stream + num_hc + stream[num_hc - 1];
+                                              uint64_t c, uint32_t* __restrict__ dst) {
     for (uint64_t i = c * kHcSize + threadIdx.x; i < border_end(border, c); i += kThreads)
         dst[i] = words[border.offset(i)];
 }
@@ -264,41 +156,11 @@ __device__ __forceinline__ void decode_border(const uint32_t* __restrict__ strea
 // CTAs that copy a border of `count` elements, 4096 each.
 inline uint64_t border_ctas(uint64_t count) { return (count + kHcSize - 1) / kHcSize; }
 
-// Inclusive scan of the n block lengths into header[0 .. n), one CTA of
-// 1024 threads, each over a contiguous run of ceil(n / 1024) entries. The
-// body's total is then known: the CTA writes the stream length in words
-// (n + body + border), so the host never waits.
-static __global__ void __launch_bounds__(1024)
-scan_lengths(const uint32_t* __restrict__ lengths, uint64_t n, uint64_t border,
-             uint32_t* __restrict__ header, int32_t* __restrict__ length) {
-    __shared__ uint32_t warp_offset[32];
-    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-    const uint64_t per = (n + 1023) / 1024;
-    const uint64_t begin = t * per < n ? t * per : n;
-    const uint64_t end = begin + per < n ? begin + per : n;
-    uint32_t sum = 0;
-    for (uint64_t i = begin; i < end; ++i) sum += lengths[i];
-    const uint32_t incl = warp_inclusive_scan(sum, lane);
-    if (lane == 31) warp_offset[warp] = incl;
-    __syncthreads();
-    if (warp == 0) {
-        const uint32_t w = warp_offset[lane];
-        const uint32_t all = warp_inclusive_scan(w, lane);
-        warp_offset[lane] = all - w;
-        if (lane == 31) *length = static_cast<int32_t>(n + all + border);
-    }
-    __syncthreads();
-    uint32_t run = warp_offset[warp] + incl - sum;
-    for (uint64_t i = begin; i < end; ++i) {
-        run += lengths[i];
-        header[i] = run;
-    }
-}
-
 // ------------------------------------------------------------------------
-// Pieces of the one-pass 1D encoder and the run decoder (encode_fp32.cu,
-// decode_fp32.cu). Both kernels run about as many instructions as the SMs
-// can take in the time their bytes need, so these count instructions.
+// Pieces of the one-pass encoders and the run decoders (encode_fp32.cu,
+// decode_fp32.cu and their 2D/3D counterparts). These kernels run about as
+// many instructions as the SMs can take in the time their bytes need, so
+// these count instructions.
 
 // warp_transpose_bits in 13 instructions a chunk instead of about 30: what a
 // lane does in each round depends only on its lane number, so it is set up
@@ -337,8 +199,9 @@ __device__ __forceinline__ uint32_t* chunk_slots(uint32_t* x, int warp, int lane
 }
 
 // ------------------------------------------------------------------------
-// One-pass encode (encode_fp32.cu): a block's offset by decoupled look-back,
-// its run compacted in shared memory and stored in whole lines.
+// One-pass encode (encode_fp32.cu, encode_fp32_nd.cu): a block's offset by
+// decoupled look-back, its run compacted in shared memory and stored in whole
+// lines.
 
 // One 64-bit status word a block: a flag in the top two bits, a count of body
 // words in the low 32 (header entries are u32). Flag and value travel in one
@@ -397,6 +260,15 @@ __device__ __forceinline__ uint32_t look_back(const uint64_t* status, uint64_t b
         }
         exclusive += __reduce_add_sync(kFull, value);
     }
+}
+
+// For one thread: wait until the block of status word `p` has published its
+// inclusive sum, and return it. Only for a CTA whose ticket came after that
+// block's: the block's CTA has then started, so the wait ends.
+__device__ __forceinline__ uint32_t wait_inclusive(const uint64_t* p) {
+    uint64_t v;
+    while (((v = load_status(p)) >> 62) != 2) __nanosleep(200);
+    return static_cast<uint32_t>(v);
 }
 
 // The encoder's work after the transform, in one pass (s.x holds block b's
@@ -461,7 +333,7 @@ __device__ __forceinline__ void encode_run(EncodeRunShared& s, uint64_t b, uint6
 }
 
 // ------------------------------------------------------------------------
-// Decode from a run in shared memory (decode_fp32.cu): a block's stream words
+// Decode from a run in shared memory (decode_fp32.cu, decode_fp32_nd.cu): a block's stream words
 // are one contiguous run, [start, start + length) with start = num_hc +
 // header[b-1] and length = header[b] - header[b-1], so one bulk copy (TMA's
 // 1D form, completing on an mbarrier) brings them in and the heads, the

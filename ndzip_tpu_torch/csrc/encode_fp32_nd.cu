@@ -5,40 +5,69 @@
 // header and border glue of _encode_fp32_device for 2D/3D shapes (and the
 // XLA gather route of shapes whose minor block-grid axis does not divide).
 //
-// The TPU kernel DMAs multi-block tiles of the full array and rearranges them
-// into blocks in VMEM with XOR cell swaps sized to Mosaic's lane tiling. Here
-// a CTA loads its one block straight from the grid, row by row (64 rows of 64
-// words in 2D, 256 rows of 16 in 3D; 16-byte loads when every row starts
-// aligned, else one word a lane), into shared memory in the block's row-major
-// order. From there a chunk is 32 consecutive block words, as in 1D, so the
-// transpose, heads, compaction and the three launches are those of the 1D
-// encoder (encode_fp32.cu; common.cuh's encode_chunks and scan_lengths):
-//   1. encode_blocks_nd<D, false>: block b = blockIdx.x, its origin split
-//      row-major over the block grid (the header's order); load, transform,
-//      count, write its length;
-//   2. scan_lengths: header and stream length;
-//   3. encode_blocks_nd<D, true>: recompute and place; CTAs past the blocks
-//      copy the border after the last body word, 4096 elements each, in
-//      format.border_slices order (common.cuh's Border).
-// The transform is rotate-left-1, then first differences along each axis in
-// the format's order (2D: 1, 0; 3D: 1, 2, 0), each a pass over shared memory
-// in which a thread walks 16 words of one line (grid_nd.cuh's segment), then
-// complement-negative.
+// The TPU kernel DMAs multi-block tiles of the full array, rearranges them
+// into blocks in VMEM with XOR cell swaps sized to Mosaic's lane tiling, and
+// carries the running stream offset from one grid step to the next. CTAs run
+// in no fixed order, so a block's offset is the sum of the lengths of all
+// blocks before it, which no CTA knows when it starts. The encode is one
+// kernel that reads its input once, the 1D encoder's design (encode_fp32.cu)
+// with the block read from the grid:
+//   * a CTA takes its block by a ticket, in the header's order (row-major
+//     over the block grid; the thread that draws the ticket splits it over
+//     the block grid once, in 32-bit arithmetic), and loads it straight from
+//     the grid, row by row (64 rows of 64 words in 2D, 256 rows of 16 in 3D;
+//     16-byte loads when every row starts aligned, else one word a lane),
+//     into shared memory in the block's row-major order. From there a chunk
+//     is 32 consecutive block words, as in 1D. Neighbouring tickets run at
+//     the same time, and the load asks the L2 for whole 128-byte lines, so of
+//     the two 3D blocks that share each line of the grid the second finds its
+//     half in the L2 (9% of the kernel's time at 512x512x2048). Before it
+//     loads, a CTA asks the L2 for the block that the CTA kAhead tickets
+//     later will load: tickets run in order, so that block is wanted a few
+//     microseconds later, and its CTA then waits on the L2 and not on the
+//     memory (12% of the kernel's time in 3D and 7% in 2D at 2 GiB; twice the
+//     distance gains the same, six times the distance loses it all);
+//   * the transform is rotate-left-1, first differences along each axis (the
+//     first word of a line stays), complement-negative. The differences along
+//     different axes commute, so they need not run in the format's order:
+//     those along the rows are taken in registers on the load (grid_nd.cuh's
+//     load_block), and one pass over shared memory does the rest, in which a
+//     thread walks 16 words of a column (2D) or of a line along z, less their
+//     neighbours at y - 1 (3D). One pass where the format's order suggests two
+//     or three: 3% of the kernel's time;
+//   * common.cuh's encode_run does the rest as in 1D: the length by OR and
+//     popcount, published at once in the block's status word; the transposes
+//     and the compaction into a second shared buffer; the offset by decoupled
+//     look-back; header[b]; the run stored in whole 128-byte lines. The last
+//     block's CTA writes the stream length;
+//   * the border has no bound (a grid of (20, 1024, 1024) has 1024 border
+//     CTAs of 4096 words, more than the card holds at once), so it cannot
+//     ride with the last block as the 1D tail does. Border CTAs are the CTAs
+//     whose ticket is num_hc or more: they wait for the last block's
+//     inclusive sum, which says where the border starts. Because they are
+//     told from block CTAs by ticket and not by blockIdx.x, every block's CTA
+//     has started when the first border CTA waits, so the wait ends whatever
+//     order the CTAs come in. The other sound way, a second small launch for
+//     the border that reads header[num_hc - 1], was measured too: it costs
+//     3 us more on every bordered grid and nothing less on any.
+// The status words and the ticket are cleared on the same CUDA stream before
+// the launch, and belong to one call.
 //
-// Bound: bytes, as the 1D encoder. Each element is read twice (passes 1 and
-// 3) in rows of 256 B (2D) or 64 B (3D); the stream is written once. The
-// per-axis passes add two shared-memory reads and one write per word and
-// axis, and a barrier each. Element and stream offsets are 64-bit.
+// Bound: bytes. Each element is read once, in rows of 256 B (2D) or 64 B
+// (3D), and the stream is written once. Two block buffers take 34 KB of
+// shared memory a CTA, six CTAs an SM. Element and stream offsets are 64-bit.
+// The measurements named here and the variants beside them: PERF.md (2 GiB
+// grids, 512x512x2048 and 16384x32768, on an NVIDIA H100 80GB HBM3, 700.00 W).
 
 #include "grid_nd.cuh"
 
 namespace ndzip {
 
-// First differences along Axis in shared memory (the first word of each line
-// stays); complement-negative after the last axis. Ends with a barrier.
-template <int Dims, int Axis, bool kLast>
-__device__ __forceinline__ void difference(uint32_t* x) {
-    const Segment g = segment<Dims, Axis>(threadIdx.x);
+// 2D: the first differences along the columns in shared memory (the first
+// word of each column stays), a thread on 16 words of one column, then
+// complement-negative. Ends with a barrier.
+__device__ __forceinline__ void difference_columns(uint32_t* x) {
+    const Segment g = segment<2, 0>(threadIdx.x);
     uint32_t v[kWordsPerThread];
     uint32_t prev = g.s ? x[pad(g.start - g.step)] : 0u;
 #pragma unroll
@@ -46,70 +75,119 @@ __device__ __forceinline__ void difference(uint32_t* x) {
     __syncthreads();
 #pragma unroll
     for (int k = 0; k < kWordsPerThread; ++k) {
-        const uint32_t d = v[k] - prev;
+        x[pad(g.start + k * g.step)] = complement_negative(v[k] - prev);
         prev = v[k];
-        x[pad(g.start + k * g.step)] = kLast ? complement_negative(d) : d;
     }
     __syncthreads();
 }
 
-template <int Dims, bool kPlace>
+// 3D: the first differences along y and along z in one pass, thread t on the
+// z line at (y, x) = (t / 16, t % 16): each word less its neighbour at y - 1,
+// then the differences of those along the line, then complement-negative.
+// Ends with a barrier.
+__device__ __forceinline__ void difference_yz(uint32_t* x) {
+    const int t = threadIdx.x;
+    uint32_t v[kWordsPerThread];
+#pragma unroll
+    for (int k = 0; k < kWordsPerThread; ++k) {
+        const uint32_t own = x[pad(t + 256 * k)];
+        v[k] = own - (t >= 16 ? x[pad(t - 16 + 256 * k)] : 0u);
+    }
+    __syncthreads();
+    uint32_t prev = 0;
+#pragma unroll
+    for (int k = 0; k < kWordsPerThread; ++k) {
+        x[pad(t + 256 * k)] = complement_negative(v[k] - prev);
+        prev = v[k];
+    }
+    __syncthreads();
+}
+
+// Tickets between a CTA and the block it asks the L2 for: one CTA an SM of an
+// H100 ahead. 66 to 264 measured the same.
+constexpr uint32_t kAhead = 132;
+
+template <int Dims>
 __global__ void __launch_bounds__(kThreads)
 encode_blocks_nd(const uint32_t* __restrict__ words, Blocks<Dims> geo, Border border, bool vec,
-                 uint64_t num_hc, uint32_t* __restrict__ lengths, uint32_t* __restrict__ stream) {
-    const uint64_t b = blockIdx.x;
-    if (kPlace && b >= num_hc) {  // a border CTA
-        encode_border(words, border, num_hc, b - num_hc, stream);
+                 uint64_t num_hc, uint64_t* status, uint32_t* __restrict__ stream,
+                 int32_t* __restrict__ length) {
+    __shared__ EncodeRunShared s;
+    __shared__ uint64_t origin;  // of the CTA's block in the grid
+    __shared__ uint64_t ahead;   // of the block kAhead tickets on, or ~0 past the last block
+    // The CTA's block is a ticket (common.cuh's take_ticket; the counter is the word after the
+    // num_hc status words); the thread that draws it also splits it over the block grid, once.
+    if (threadIdx.x == 0) {
+        s.block = atomicAdd(reinterpret_cast<uint32_t*>(status + num_hc), 1u);
+        if (s.block < num_hc) origin = geo.origin32(s.block);
+        ahead = s.block + kAhead < num_hc ? geo.origin32(s.block + kAhead) : ~0ull;
+    }
+    __syncthreads();
+    const uint64_t b = s.block;
+    if (b >= num_hc) {  // a border CTA: the border starts after the last block's run
+        if (threadIdx.x == 0) s.exclusive = wait_inclusive(status + num_hc - 1);
+        __syncthreads();
+        encode_border(words, border, b - num_hc, stream + num_hc + s.exclusive);
         return;
     }
 
-    __shared__ EncodeShared s;
-    load_block(words + geo.origin(b), geo, vec, s.x);
+    if (ahead != ~0ull) prefetch_block(words + ahead, geo);
+    load_block(words + origin, geo, vec, s.x);  // with the differences along the rows
     __syncthreads();
     if constexpr (Dims == 2) {
-        difference<2, 1, false>(s.x);
-        difference<2, 0, true>(s.x);
+        difference_columns(s.x);
     } else {
-        difference<3, 1, false>(s.x);
-        difference<3, 2, false>(s.x);
-        difference<3, 0, true>(s.x);
+        difference_yz(s.x);
     }
-    encode_chunks<kPlace>(s, b, num_hc, lengths, stream);
+    encode_run(s, b, num_hc, status, stream);
+
+    if (b == num_hc - 1 && threadIdx.x == 0)  // the body's total is s.exclusive + s.length
+        *length = static_cast<int32_t>(num_hc + s.exclusive + s.length + border.count);
 }
 
 template <int Dims>
-int encode_nd(const uint32_t* in, uint64_t e0, uint64_t e1, uint64_t e2, uint32_t* out, uint32_t* lens,
+int encode_nd(const uint32_t* in, uint64_t e0, uint64_t e1, uint64_t e2, uint32_t* out, uint64_t* status,
               int32_t* length, cudaStream_t s) {
     const GridNd<Dims> g(e0, e1, e2);
-    const bool vec = rows_aligned(in, e2);
-    const auto grid = static_cast<unsigned>(g.num_hc);
-    cudaError_t err;
-    encode_blocks_nd<Dims, false><<<grid, kThreads, 0, s>>>(in, g.blocks, g.border, vec, g.num_hc,
-                                                            lens, out);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    scan_lengths<<<1, 1024, 0, s>>>(lens, g.num_hc, g.border.count, out, length);
-    if ((err = cudaGetLastError()) != cudaSuccess) return err;
-    encode_blocks_nd<Dims, true><<<grid + border_ctas(g.border.count), kThreads, 0, s>>>(
-        in, g.blocks, g.border, vec, g.num_hc, lens, out);
+    const cudaError_t err = cudaMemsetAsync(status, 0, (g.num_hc + 1) * sizeof(uint64_t), s);
+    if (err != cudaSuccess) return err;
+    encode_blocks_nd<Dims><<<static_cast<unsigned>(g.num_hc + border_ctas(g.border.count)), kThreads, 0, s>>>(
+        in, g.blocks, g.border, rows_aligned(in, e2), g.num_hc, status, out, length);
     return cudaGetLastError();
+}
+
+template <int Dims>
+int encode_nd_ctas_per_sm() {
+    int ctas = 0;
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, encode_blocks_nd<Dims>, kThreads, 0);
+    return err == cudaSuccess ? ctas : -static_cast<int>(err);
 }
 
 }  // namespace ndzip
 
 // words: the grid of `dims` (2 or 3) dims, its shape padded in front with 1s
 // to (e0, e1, e2), with at least one whole block. stream: room for the
-// compressed bound. lengths: one word of scratch per block. length: one
-// int32. Launches on the current device. Returns the first CUDA error of the
-// launches, 0 if none.
+// compressed bound. status: num_hc + 1 64-bit words of scratch, which belong
+// to this call alone. length: one int32. Launches on the current device.
+// Returns the first CUDA error, 0 if none.
 extern "C" int ndzip_encode_fp32_nd(const void* words, int64_t dims, int64_t e0, int64_t e1, int64_t e2,
-                                    void* stream, void* lengths, void* length, void* cuda_stream) {
+                                    void* stream, void* status, void* length, void* cuda_stream) {
     using namespace ndzip;
     const auto* in = static_cast<const uint32_t*>(words);
     auto* out = static_cast<uint32_t*>(stream);
-    auto* lens = static_cast<uint32_t*>(lengths);
+    auto* st = static_cast<uint64_t*>(status);
     auto* len = static_cast<int32_t*>(length);
     const auto s = static_cast<cudaStream_t>(cuda_stream);
-    if (dims == 2) return encode_nd<2>(in, e0, e1, e2, out, lens, len, s);
-    if (dims == 3) return encode_nd<3>(in, e0, e1, e2, out, lens, len, s);
+    if (dims == 2) return encode_nd<2>(in, e0, e1, e2, out, st, len, s);
+    if (dims == 3) return encode_nd<3>(in, e0, e1, e2, out, st, len, s);
     return cudaErrorInvalidValue;
+}
+
+// CTAs of encode_blocks_nd for `dims` (2 or 3) that one SM holds at a time,
+// or minus the CUDA error.
+extern "C" int ndzip_encode_fp32_nd_ctas_per_sm(int64_t dims) {
+    if (dims == 2) return ndzip::encode_nd_ctas_per_sm<2>();
+    if (dims == 3) return ndzip::encode_nd_ctas_per_sm<3>();
+    return -static_cast<int>(cudaErrorInvalidValue);
 }

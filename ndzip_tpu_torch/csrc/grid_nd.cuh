@@ -29,6 +29,15 @@ struct Blocks {
         const uint64_t c2 = b % g2, c1 = (b / g2) % g1, c0 = b / g2 / g1;  // c0 = 0 in 2D
         return (c0 * kSide0 * e1 + c1 * kSide) * e2 + c2 * kSide;
     }
+    // origin(b) in 32-bit arithmetic (a grid's block count fits 32 bits): a
+    // fraction of the instructions of three 64-bit divisions, which weigh on
+    // a kernel that runs a few hundred instructions a thread and block.
+    __device__ __forceinline__ uint64_t origin32(uint32_t b) const {
+        const uint32_t n1 = static_cast<uint32_t>(g1), n2 = static_cast<uint32_t>(g2);
+        const uint32_t c2 = b % n2, q = b / n2;
+        const uint64_t c1 = Dims == 2 ? q : q % n1, c0 = Dims == 2 ? 0 : q / n1;
+        return (c0 * kSide0 * e1 + c1 * kSide) * e2 + static_cast<uint64_t>(c2) * kSide;
+    }
     // Offset from a block's first word of the first word of its row r.
     __device__ __forceinline__ uint64_t row(int r) const {
         return Dims == 2 ? r * e2 : (r / kSide) * e1 * e2 + (r % kSide) * e2;
@@ -71,37 +80,82 @@ __device__ __forceinline__ void walk_block(F f) {
     for (int k = 0; k < kHcSize / W / kThreads; ++k) f(W * (static_cast<int>(threadIdx.x) + k * kThreads));
 }
 
-// Load the block whose first word is `block` into x, rotating each word left
-// by one. A warp reads whole rows: 256 B (2D) or 64 B (3D) runs.
+// Load the block whose first word is `block` into x: each word rotated left by
+// one, less its rotated left neighbour in the row (the first word of a row
+// stays): the forward transform's differences along the rows, which commute
+// with those along the other axes, done on the way in. A warp reads whole
+// rows: 256 B (2D) or 64 B (3D) runs. With 16-byte loads the neighbour comes
+// from the lane before (a row starts at lane 0 of its 4 or 16 lanes), and the
+// load asks the L2 for the whole 128-byte line: the other half of a 3D row's
+// line belongs to the next block along the row, which a CTA running at the
+// same time reads. One word a lane reads its neighbour again, from the L1.
 template <int Dims>
 __device__ __forceinline__ void load_block(const uint32_t* __restrict__ block, const Blocks<Dims>& geo,
                                            bool vec, uint32_t* x) {
+    constexpr int kSide = Blocks<Dims>::kSide;
     if (vec) {
         walk_block<4>([&](int i) {
-            const uint4 v = *reinterpret_cast<const uint4*>(block + geo.word(i));
-            x[pad(i)] = rotl1(v.x);
-            x[pad(i + 1)] = rotl1(v.y);
-            x[pad(i + 2)] = rotl1(v.z);
-            x[pad(i + 3)] = rotl1(v.w);
+            uint4 v;
+            asm volatile("ld.global.nc.L2::128B.v4.u32 {%0, %1, %2, %3}, [%4];"
+                         : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+                         : "l"(block + geo.word(i)));
+            const uint32_t a = rotl1(v.x), b = rotl1(v.y), c = rotl1(v.z), d = rotl1(v.w);
+            const uint32_t left = __shfl_up_sync(kFull, d, 1);
+            x[pad(i)] = a - (i % kSide ? left : 0u);
+            x[pad(i + 1)] = b - a;
+            x[pad(i + 2)] = c - b;
+            x[pad(i + 3)] = d - c;
         });
     } else {
-        walk_block<1>([&](int i) { x[pad(i)] = rotl1(block[geo.word(i)]); });
+        walk_block<1>([&](int i) {
+            const uint32_t* p = block + geo.word(i);
+            x[pad(i)] = rotl1(p[0]) - (i % kSide ? rotl1(p[-1]) : 0u);
+        });
     }
 }
 
-// Store x into the block whose first word is `block`, rotating each word
-// right by one.
+// Ask the L2 for the block whose first word is `block`, one prefetch for
+// each 128-byte piece of a row (two a 2D row; a 3D row's 64 bytes lie in one
+// line): for a block that another CTA will load soon.
 template <int Dims>
-__device__ __forceinline__ void store_block(uint32_t* __restrict__ block, const Blocks<Dims>& geo,
-                                            bool vec, const uint32_t* x) {
-    if (vec) {
-        walk_block<4>([&](int i) {
-            *reinterpret_cast<uint4*>(block + geo.word(i)) =
-                make_uint4(rotr1(x[pad(i)]), rotr1(x[pad(i + 1)]), rotr1(x[pad(i + 2)]), rotr1(x[pad(i + 3)]));
-        });
-    } else {
-        walk_block<1>([&](int i) { block[geo.word(i)] = rotr1(x[pad(i)]); });
-    }
+__device__ __forceinline__ void prefetch_block(const uint32_t* block, const Blocks<Dims>& geo) {
+    constexpr int kPieces = Dims == 2 ? 2 : 1;
+    const int t = threadIdx.x;
+    if (t < kPieces * (kHcSize / Blocks<Dims>::kSide))
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(block + geo.row(t / kPieces) + 32 * (t % kPieces)));
+}
+
+// Store x into the block whose first word is `block`, one word a lane,
+// rotating each word right by one (rows that do not start 16-byte aligned).
+template <int Dims>
+__device__ __forceinline__ void store_block_words(uint32_t* __restrict__ block, const Blocks<Dims>& geo,
+                                                  const uint32_t* x) {
+    walk_block<1>([&](int i) { block[geo.word(i)] = rotr1(x[pad(i)]); });
+}
+
+// Store the wrapping inclusive prefix sums of x along the rows into the block
+// whose first word is `block`, each rotated right by one, with 16-byte stores
+// (rows start 16-byte aligned): the inverse transform's sums along the rows,
+// which commute with those along the other axes, done in registers on the way
+// out. A thread sums its four words, and the 4 or 16 lanes of a row scan
+// their sums.
+template <int Dims>
+__device__ __forceinline__ void store_block_rowsum(uint32_t* __restrict__ block, const Blocks<Dims>& geo,
+                                                   const uint32_t* x) {
+    constexpr int kLanes = Blocks<Dims>::kSide / 4;  // lanes a row
+    const int at = threadIdx.x & (kLanes - 1);
+    walk_block<4>([&](int i) {
+        const uint32_t a = x[pad(i)], b = a + x[pad(i + 1)], c = b + x[pad(i + 2)], d = c + x[pad(i + 3)];
+        uint32_t sum = d;
+#pragma unroll
+        for (int off = 1; off < kLanes; off <<= 1) {
+            const uint32_t up = __shfl_up_sync(kFull, sum, off);
+            if (at >= off) sum += up;
+        }
+        const uint32_t before = sum - d;
+        *reinterpret_cast<uint4*>(block + geo.word(i)) =
+            make_uint4(rotr1(a + before), rotr1(b + before), rotr1(c + before), rotr1(d + before));
+    });
 }
 
 // The 16 block words start + k * step (k < 16) that thread t walks along

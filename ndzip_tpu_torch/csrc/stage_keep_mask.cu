@@ -13,7 +13,7 @@
 // are golden.encode_blocks_dense's `valid`.
 //
 // On Hopper the nonzero mask of 32 consecutive words is one warp ballot, as
-// B1's compaction takes it (common.cuh's encode_chunks): each warp owns a
+// B1's compaction takes it (common.cuh's encode_run): each warp owns a
 // run of 32 words of one row, and each lane reads its word's bit from the
 // ballot. R * 128 is a multiple of 32, so every warp is whole or past the end.
 //

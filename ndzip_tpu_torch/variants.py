@@ -1,0 +1,234 @@
+"""Compare variants of the kernels' sources on one card, in one process.
+
+A variant is a directory that holds a full copy of ``csrc/`` with some file
+changed (for example the parent commit's sources beside this tree's). Two
+commands, both for a machine with nvcc and a GPU:
+
+``python -m ndzip_tpu_torch.variants time DIR [DIR ...] [--shapes 256x256x256 ...]``
+    builds each directory into its own library, checks on every shape that
+    all variants give the first variant's stream and give the input back,
+    then times the fp32 encode and decode kernels of each variant in turns
+    (A, B, ..., A, B, ...): ``--reps`` launches back to back with a CUDA
+    event between every two, ``--rounds`` rounds after one that warms up; it
+    prints the median of all launches in us, each round's median, the least
+    and the greatest launch, and the first launch of each round, which
+    follows another kernel or a pause. 1D shapes go to
+    the 1D kernels, 2D/3D shapes to the nd kernels. Prints what ``ptxas -v``
+    says of the kernels whose name contains ``--ptxas``.
+
+``python -m ndzip_tpu_torch.variants sass DIR_A DIR_B [--same FILE.cu ...]``
+    compiles each ``.cu`` of both directories to a cubin, dumps its SASS with
+    ``cuobjdump -sass`` and says per file how many kernels the two sides
+    share, how many of those are identical instruction for instruction, which
+    differ and which exist on one side only; exits nonzero if a kernel of a
+    file named by ``--same`` differs.
+
+The data is ``sin`` of the flat index plus noise, made on the card from a
+seed; the numbers say which variant is faster on this card, in this call.
+"""
+
+from __future__ import annotations
+
+import argparse
+import re
+import statistics
+import subprocess
+import sys
+import tempfile
+from pathlib import Path
+
+ENTRY_POINTS = ["ndzip_encode_fp32", "ndzip_decode_fp32", "ndzip_encode_fp32_nd", "ndzip_decode_fp32_nd"]
+
+
+def _shape(text: str) -> tuple[int, ...]:
+    return tuple(int(e) for e in text.lower().split("x"))
+
+
+class Variant:
+    """One directory of sources, built and loaded, with the fp32 kernels'
+    wrappers on raw pointers (the arguments of ``_build.SIGNATURES``)."""
+
+    def __init__(self, csrc: Path):
+        from . import _build
+
+        self.name = str(csrc)
+        self.csrc = csrc
+        self.lib = _build.load_from(csrc, ENTRY_POINTS)
+
+    def encode(self, words, stream, scratch, length):
+        import torch
+
+        from .codec_cuda import _extents
+        from .codec_torch import HC
+
+        cs = torch.cuda.current_stream().cuda_stream
+        if words.dim() == 1:
+            n = words.numel()
+            err = self.lib.ndzip_encode_fp32(words.data_ptr(), n // HC, n % HC, stream.data_ptr(),
+                                             scratch.data_ptr(), length.data_ptr(), cs)
+        else:
+            err = self.lib.ndzip_encode_fp32_nd(words.data_ptr(), words.dim(), *_extents(words.shape),
+                                                stream.data_ptr(), scratch.data_ptr(), length.data_ptr(), cs)
+        if err:
+            raise RuntimeError(f"{self.name}: encode failed with CUDA error {err}")
+
+    def decode(self, stream, out):
+        import torch
+
+        from .codec_cuda import _extents
+        from .codec_torch import HC
+
+        cs = torch.cuda.current_stream().cuda_stream
+        if out.dim() == 1:
+            n = out.numel()
+            err = self.lib.ndzip_decode_fp32(stream.data_ptr(), stream.numel(), n // HC, n % HC, out.data_ptr(), cs)
+        else:
+            err = self.lib.ndzip_decode_fp32_nd(stream.data_ptr(), stream.numel(), out.dim(),
+                                                *_extents(out.shape), out.data_ptr(), cs)
+        if err:
+            raise RuntimeError(f"{self.name}: decode failed with CUDA error {err}")
+
+
+def _us_of_launches(fn, reps: int) -> list[float]:
+    """The time of each of ``reps`` launches back to back, in us: an event
+    between every two, read when all have run."""
+    import torch
+
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    events[0].record()
+    for e in events[1:]:
+        fn()
+        e.record()
+    events[-1].synchronize()
+    return [a.elapsed_time(b) * 1e3 for a, b in zip(events, events[1:])]
+
+
+def time_variants(dirs, shapes, reps: int, rounds: int, ptxas: list[str]) -> int:
+    import torch
+
+    from . import _build, utils
+    from . import format as fmt
+
+    if not torch.cuda.is_available():
+        raise SystemExit("variants: needs an NVIDIA GPU")
+    card = utils.card()
+    variants = [Variant(Path(d)) for d in dirs]
+    for v in variants:
+        for pattern in ptxas:
+            for line in _build.ptxas_lines(pattern, v.csrc):
+                print(f"[ptxas] {v.name}: {line}", flush=True)
+    dev = torch.device("cuda", 0)
+    for shape in shapes:
+        n = 1
+        for e in shape:
+            n *= e
+        gen = torch.Generator(device=dev).manual_seed(0)
+        x = torch.sin(torch.arange(n, device=dev, dtype=torch.float32) * 1e-4)
+        x += 1e-3 * torch.randn(n, device=dev, generator=gen)
+        words = x.view(torch.int32).reshape(shape)
+        del x
+        num_hc = fmt.num_hypercubes(shape)
+        bound = fmt.compressed_bound_u32(shape, 32)
+        # scratch: the status words of a one-pass encoder or the lengths of a three-pass one
+        scratch = torch.empty(num_hc + 1, dtype=torch.int64, device=dev)
+        length = torch.zeros((), dtype=torch.int32, device=dev)
+        first, out = None, torch.empty_like(words)
+        for v in variants:
+            stream = torch.full((bound,), -1, dtype=torch.int32, device=dev)
+            v.encode(words, stream, scratch, length)
+            L = int(length)
+            if first is None:
+                first = stream[:L].clone()
+            elif L != first.numel() or not torch.equal(stream[:L], first):
+                raise SystemExit(f"variants: {v.name} gives another stream than {variants[0].name} on {shape}")
+            out.fill_(-1)
+            v.decode(first, out)
+            if not torch.equal(out, words):
+                raise SystemExit(f"variants: {v.name} does not give the input back on {shape}")
+        stream = torch.empty(bound, dtype=torch.int32, device=dev)
+        times = {(v.name, what): [] for v in variants for what in ("encode", "decode")}
+        for _ in range(rounds + 1):  # the first round warms up
+            for v in variants:
+                for what, fn in (("encode", lambda v=v: v.encode(words, stream, scratch, length)),
+                                 ("decode", lambda v=v: v.decode(first, out))):
+                    times[v.name, what].append(_us_of_launches(fn, reps))
+        label = "x".join(map(str, shape))
+        for (name, what), per_round in times.items():
+            every = [us for one_round in per_round[1:] for us in one_round]
+            print(f"[time] {label} {what} {name}: {statistics.median(every):.2f} us a launch (median of {rounds} "
+                  f"rounds of {reps} launches back to back; rounds "
+                  f"{' '.join(f'{statistics.median(r):.2f}' for r in per_round[1:])}; least {min(every):.2f}, "
+                  f"greatest {max(every):.2f}; the first launch of each round "
+                  f"{' '.join(f'{r[0]:.2f}' for r in per_round[1:])}); ratio {first.numel() / n:.4f} on {card}",
+                  flush=True)
+        del words, stream, out, first
+        torch.cuda.empty_cache()
+    return 0
+
+
+def _kernels_sass(nvcc: str, src: Path, tmp: Path) -> dict[str, str]:
+    """The SASS of each kernel of one source, by its mangled name."""
+    from . import _build
+
+    flags = [f for f in _build.NVCC_FLAGS if f not in ("-Xptxas", "-v")]
+    cubin = tmp / f"{src.parent.parent.name}_{src.parent.name}_{src.stem}.cubin"
+    subprocess.run([nvcc, *flags, "-cubin", "-o", str(cubin), str(src)], check=True, capture_output=True)
+    cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
+    text = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True, capture_output=True, text=True).stdout
+    parts = re.split(r"^\s*Function : (\S+)\s*$", text, flags=re.M)
+    # a kernel's instructions and their encodings: the lines that hold a /* ... */ field; what
+    # cuobjdump prints between two kernels goes with neither
+    return {name: "\n".join(line.strip() for line in body.splitlines() if "/*" in line)
+            for name, body in zip(parts[1::2], parts[2::2])}
+
+
+def compare_sass(dir_a: Path, dir_b: Path, same: list[str]) -> int:
+    from . import _build
+
+    nvcc = _build._find_nvcc()
+    if nvcc is None:
+        raise SystemExit("variants: nvcc not found")
+    changed_files = []
+    with tempfile.TemporaryDirectory() as tmp:
+        for src_a in sorted(dir_a.glob("*.cu")):
+            src_b = dir_b / src_a.name
+            if not src_b.exists():
+                print(f"[sass] {src_a.name}: only in {dir_a}", flush=True)
+                continue
+            a, b = _kernels_sass(nvcc, src_a, Path(tmp)), _kernels_sass(nvcc, src_b, Path(tmp))
+            both = sorted(a.keys() & b.keys())
+            differ = [k for k in both if a[k] != b[k]]
+            one_side = sorted(a.keys() ^ b.keys())
+            if differ:
+                changed_files.append(src_a.name)
+            print(f"[sass] {src_a.name}: {len(both)} kernels on both sides, {len(both) - len(differ)} identical"
+                  + (f"; differing: {', '.join(differ)}" if differ else "")
+                  + (f"; on one side only: {', '.join(one_side)}" if one_side else ""), flush=True)
+    broken = sorted(set(same) & set(changed_files))
+    if broken:
+        print(f"[sass] FAILED: kernels of {', '.join(broken)} should be identical and are not", flush=True)
+        return 1
+    return 0
+
+
+def main(argv=None) -> int:
+    p = argparse.ArgumentParser(prog="python -m ndzip_tpu_torch.variants", description=__doc__.split("\n\n")[0])
+    sub = p.add_subparsers(dest="command", required=True)
+    t = sub.add_parser("time")
+    t.add_argument("dirs", nargs="+")
+    t.add_argument("--shapes", nargs="+", type=_shape, default=[(256, 256, 256), (512, 512, 2048)])
+    t.add_argument("--reps", type=int, default=20)
+    t.add_argument("--rounds", type=int, default=3)
+    t.add_argument("--ptxas", nargs="*", default=["blocks_nd"])
+    s = sub.add_parser("sass")
+    s.add_argument("dir_a", type=Path)
+    s.add_argument("dir_b", type=Path)
+    s.add_argument("--same", nargs="*", default=[])
+    args = p.parse_args(argv)
+    if args.command == "time":
+        return time_variants(args.dirs, args.shapes, args.reps, args.rounds, args.ptxas)
+    return compare_sass(args.dir_a, args.dir_b, args.same)
+
+
+if __name__ == "__main__":
+    sys.exit(main())

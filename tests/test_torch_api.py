@@ -114,6 +114,44 @@ def test_auto_without_a_gpu_resolves_to_a_host_codec(no_gpu, monkeypatch):
     assert api.make_offloader("auto", np.float32, 1).backend == "golden"
 
 
+def test_backend_env_override_and_probe(no_gpu, monkeypatch):
+    """backend="auto" honours NDZIP_TORCH_BACKEND, an explicit backend passes
+    both the variable and the probe by, and an unknown name in the variable
+    raises as an unknown backend does (tests/test_api.py's case)."""
+    assert api.BACKEND_ENV == "NDZIP_TORCH_BACKEND"
+    monkeypatch.setenv(api.BACKEND_ENV, "golden")
+    assert api._resolve_backend("auto") == "golden"
+    assert api.make_offloader("auto", np.float32, 1).backend == "golden"
+    assert type(api.make_compressor(np.float32, 1)) is api._GoldenCompressor
+    assert type(api.make_decompressor(np.float32, 1)) is api._GoldenDecompressor
+    # explicit backends bypass both the variable and the probe
+    assert api._resolve_backend("torch") == "torch"
+    assert api.make_offloader("torch", np.float32, 1).backend == "torch"
+    monkeypatch.setenv(api.BACKEND_ENV, "torch")
+    data = np.sin(np.arange(4096 + 9, dtype=np.float32))
+    comp = api.make_compressor(np.float32, 1)
+    assert type(comp) is api._TorchCompressor
+    assert comp.compress(data)[0].tobytes() == golden.compress(data)[0].tobytes()
+
+    for unknown in ("pallas", "no-such-backend"):
+        monkeypatch.setenv(api.BACKEND_ENV, unknown)
+        with pytest.raises(ValueError, match="unknown backend"):
+            api.make_compressor(np.float32, 1)
+        with pytest.raises(ValueError, match="unknown backend"):
+            api.make_decompressor(np.float32, 1, "auto")
+        assert api.make_compressor(np.float32, 1, "golden").compress(data)[1] > 0
+
+    # "auto" in the variable, or no variable, leaves the probe to decide
+    monkeypatch.setenv(api.BACKEND_ENV, "auto")
+    assert api._resolve_backend("auto") in ("cpu", "golden")
+    monkeypatch.delenv(api.BACKEND_ENV)
+    assert api._resolve_backend("auto") in ("cpu", "golden")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    assert api._resolve_backend("auto") == "cuda"
+    monkeypatch.setenv(api.BACKEND_ENV, "golden")
+    assert api._resolve_backend("auto") == "golden"
+
+
 def test_cuda_without_a_gpu_raises(no_gpu):
     with pytest.raises(RuntimeError, match="GPU"):
         api.make_compressor(np.float32, 1, "cuda")

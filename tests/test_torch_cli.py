@@ -150,7 +150,7 @@ def test_warm_without_a_gpu_exits_nonzero(capsys, monkeypatch):
 def test_warm_without_nvcc_exits_nonzero(capsys, monkeypatch, tmp_path):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(_build, "_find_nvcc", lambda: None)
-    monkeypatch.setattr(_build, "library_path", lambda: tmp_path / "libndzip_cuda_test.so")
+    monkeypatch.setattr(_build, "library_path", lambda *csrc: tmp_path / "libndzip_cuda_test.so")
     _build.load.cache_clear()
     assert warm.run(["--shapes", "4096"]) != 0
     assert "nvcc not found" in capsys.readouterr().err

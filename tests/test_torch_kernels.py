@@ -13,7 +13,9 @@ plain versions and against ``golden`` on chip_smoke.py's phase-3 cases,
 exact: the kernel's stream is golden's byte for byte, and the decode kernel
 gives back the input from golden's stream; the 1D encoder also on inputs
 that stress its look-back, many times and on two CUDA streams, and the 1D
-decoder on stream views at any word offset, without slack and truncated.
+decoder on stream views at any word offset, without slack and truncated; the
+2D/3D pair on the same, and on bordered grids whose border needs more CTAs
+than the card holds at once or whose rows are not 16-byte aligned.
 Run those on the card
 with ``NDZIP_TPU_TESTS_TPU=1 python -m pytest tests/test_torch_kernels.py -m cuda``
 (the variable keeps tests/conftest.py from setting up JAX, which the port's
@@ -25,7 +27,8 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import fp64_kernel_cases, kernel_cases, nd_kernel_cases  # noqa: E402
+from chip_smoke import (fp64_kernel_cases, grid_normal, kernel_cases, nd_border_shapes,  # noqa: E402
+                        nd_kernel_cases)
 from ndzip_tpu import format as fmt  # noqa: E402
 from ndzip_tpu import golden  # noqa: E402
 from ndzip_tpu.ops import bitops as ref_bitops  # noqa: E402
@@ -364,6 +367,89 @@ def test_cuda_nd_kernels_match_plain(cuda, label):
     g_out = codec_cuda._decode_interior_fp32(torch.from_numpy(g_stream.view(np.int32)).to(cuda), shape)
     torch.cuda.synchronize()
     assert torch.equal(g_out, w)
+
+
+#: the 2D/3D grids of nd_kernel_cases with at least one whole block
+ND_LABELS = [label for label in nd_kernel_cases() if "all border" not in label]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("label", ND_LABELS)
+def test_cuda_nd_decode_of_a_stream_view(cuda, label, offset):
+    """golden's stream, exactly its length with nothing after it, as a view at
+    any word offset of its storage: the nd decode kernel gives back the input."""
+    data = nd_kernel_cases()[label]
+    g_stream, _ = golden.compress(data.view(np.float32))
+    storage = torch.full((offset + g_stream.size,), -1, dtype=torch.int32, device=cuda)
+    storage[offset:] = torch.from_numpy(g_stream.view(np.int32)).to(cuda)
+    out = codec_cuda._decode_interior_fp32(storage[offset:], data.shape)
+    torch.cuda.synchronize()
+    assert out.cpu().numpy().view(np.uint32).tobytes() == data.view(np.uint32).tobytes()
+    whole = codec_cuda.decompress_device(storage[offset:], data.shape, torch.int32)
+    assert whole.cpu().numpy().view(np.uint32).tobytes() == data.view(np.uint32).tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ND_LABELS)
+def test_cuda_nd_decode_of_a_truncated_stream(cuda, label):
+    """A stream cut short does not fault, and its blocks decode to what
+    golden's words give when the missing ones count as zeros."""
+    data = nd_kernel_cases()[label]
+    shape, dims = data.shape, data.ndim
+    g_stream, _ = golden.compress(data.view(np.float32))
+    num_hc, L = fmt.num_hypercubes(shape), g_stream.size
+    full = torch.from_numpy(g_stream.view(np.int32)).to(cuda)
+    for cut in sorted({num_hc, num_hc + 1, num_hc + 130, L // 2, L * 2 // 3, L - 1}):
+        zeros_past = torch.zeros(L + HC + HC // 32, dtype=torch.int32, device=cuda)
+        zeros_past[:cut] = full[:cut]
+        out = codec_cuda._decode_interior_fp32(full[:cut].clone(), shape)
+        torch.cuda.synchronize()
+        assert torch.equal(codec_torch.gather_blocks(out, shape),
+                           codec_torch.decode_blocks_ref(zeros_past, num_hc, dims)), cut
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", ND_LABELS)
+def test_cuda_nd_encode_lookback_is_golden(cuda, label):
+    """The one-pass nd encoder's stream is golden's byte for byte on 20 calls
+    in a row and on calls on two CUDA streams at once: a call's status words
+    are its own."""
+    data = nd_kernel_cases()[label]
+    g_stream, g_length = golden.compress(data.view(np.float32))
+    want = g_stream.tobytes()
+    w = torch.from_numpy(data.view(np.int32)).to(cuda)
+    side = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    calls = [codec_cuda._encode_interior_fp32(w) for _ in range(20)]
+    for i in range(6):
+        with torch.cuda.stream(side[i % 2]):
+            calls.append(codec_cuda._encode_interior_fp32(w))
+    torch.cuda.synchronize()
+    for stream, length in calls:
+        assert int(length) == g_length
+        assert stream[: int(length)].cpu().numpy().view(np.uint32).tobytes() == want
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(nd_border_shapes()))
+def test_cuda_nd_bordered_grids_are_golden(cuda, label):
+    """Through the entry points: a border of more CTAs than the card holds at
+    once (the encoder's border CTAs wait for the last block, and must not
+    keep it from starting), and unaligned rows with a border on every axis.
+    The run ends, the stream is golden's and the round trip is bit-exact."""
+    shape = nd_border_shapes()[label]
+    data = grid_normal(np.random.default_rng(0), shape)
+    g_stream, g_length = golden.compress(data)
+    x = torch.from_numpy(data).to(cuda)
+    for _ in range(3):
+        stream, length = codec_cuda.compress_device(x)
+        torch.cuda.synchronize()
+        assert int(length) == g_length
+        assert stream[: int(length)].cpu().numpy().view(np.uint32).tobytes() == g_stream.tobytes()
+    out = codec_cuda.decompress_device(torch.from_numpy(g_stream.view(np.int32)).to(cuda), shape)
+    torch.cuda.synchronize()
+    assert torch.equal(out.view(torch.int32), x.view(torch.int32))
 
 
 # ------------------------------------------------------------ fp64 (B5-B8)

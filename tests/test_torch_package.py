@@ -14,7 +14,8 @@ torch = pytest.importorskip("torch")
 
 import ndzip_tpu_torch as nt  # noqa: E402
 from ndzip_tpu import golden  # noqa: E402
-from ndzip_tpu_torch import _build, codec_cuda, interop, stages  # noqa: E402
+from ndzip_tpu_torch import _build, codec_cuda, codec_torch, interop, stages  # noqa: E402
+from ndzip_tpu_torch import format as port_format  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 MODULES = ["ndzip_tpu_torch", "ndzip_tpu_torch._build", "ndzip_tpu_torch.codec_cuda",
@@ -38,7 +39,7 @@ def test_import_leaves_jax_out():
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     monkeypatch.setattr(_build, "_find_nvcc", lambda: None)
     monkeypatch.setattr(_build, "BUILD", tmp_path)
-    monkeypatch.setattr(_build, "library_path", lambda: tmp_path / "libndzip_cuda_test.so")
+    monkeypatch.setattr(_build, "library_path", lambda *csrc: tmp_path / "libndzip_cuda_test.so")
     _build.load.cache_clear()
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.load()
@@ -51,7 +52,7 @@ def test_failing_nvcc_raises_with_its_stderr(monkeypatch, tmp_path):
     nvcc.chmod(0o755)
     monkeypatch.setattr(_build, "_find_nvcc", lambda: str(nvcc))
     monkeypatch.setattr(_build, "BUILD", tmp_path / "build")
-    monkeypatch.setattr(_build, "library_path", lambda: tmp_path / "build" / "libndzip_cuda_test.so")
+    monkeypatch.setattr(_build, "library_path", lambda *csrc: tmp_path / "build" / "libndzip_cuda_test.so")
     with pytest.raises(RuntimeError, match="kernel does not compile"):
         _build.build()
     assert list((tmp_path / "build").iterdir()) == []
@@ -131,3 +132,73 @@ def test_bad_inputs_raise_value_error():
         nt.decompress_device(torch.zeros(10, dtype=torch.int32), (2, 2, 2, 2), np.float64)
     with pytest.raises(ValueError):  # an fp64 stream of an odd number of u32 words
         nt.decompress_device(torch.zeros(4097 * 2 + 1, dtype=torch.int32), (4096,), np.float64)
+
+
+#: (shape, word bits, whether its stream's length may not fit an int32)
+LENGTH_CASES = [
+    ((2**31,), 32, True), ((2**31 - 4096,), 32, True), ((1024, 1024, 1024), 64, True), ((2**30,), 64, True),
+    ((46341, 46341), 32, True), ((1, 1, 2**31), 32, True),
+    ((512, 512, 2048), 32, False), ((2**28 + 17,), 32, False), ((512, 512, 512), 64, False),
+    ((2**30,), 32, False), ((1024, 1024, 960), 64, False), ((100,), 32, False),
+]
+
+
+@pytest.mark.parametrize("shape,bits,too_long", LENGTH_CASES, ids=str)
+def test_stream_length_that_does_not_fit_raises(shape, bits, too_long):
+    """From shapes alone: a grid whose compressed bound reaches 2**31 u32
+    words is refused by the one function both paths of compress_device and
+    decompress_device call, and every other grid passes it."""
+    assert (port_format.compressed_bound_u32(shape, bits) >= 2**31) == too_long
+    if not too_long:
+        codec_torch.check_stream_length(shape, bits)
+        return
+    with pytest.raises(ValueError, match="int32"):
+        codec_torch.check_stream_length(shape, bits)
+    dtype = torch.float32 if bits == 32 else torch.float64
+    with pytest.raises(ValueError, match="int32"):
+        codec_torch.output_dtype(shape, dtype)
+    # the entry points refuse before they touch any data: a tensor without storage will do
+    x = torch.empty(shape, dtype=dtype, device="meta")
+    with pytest.raises(ValueError, match="int32"):
+        codec_torch.as_words(x)
+    with pytest.raises(ValueError, match="int32"):
+        nt.compress_device(x)
+    with pytest.raises(ValueError, match="int32"):
+        codec_cuda.compress_device(x)
+    for decompress in (nt.decompress_device, codec_cuda.decompress_device):
+        with pytest.raises(ValueError, match="int32"):
+            decompress(torch.zeros(8, dtype=torch.int32), shape, dtype)
+
+
+def _c_entry_points():
+    """Every extern "C" function of csrc/*.cu: name -> the kinds of its
+    arguments, ctypes.c_void_p for a pointer and ctypes.c_int64 for int64_t."""
+    import ctypes
+    import re
+
+    found = {}
+    for src in sorted(_build.CSRC.glob("*.cu")):
+        for name, args in re.findall(r'extern\s+"C"\s+int\s+(\w+)\s*\(([^)]*)\)', src.read_text()):
+            kinds = []
+            for arg in filter(None, (a.strip() for a in args.split(","))):
+                if "*" in arg:
+                    kinds.append(ctypes.c_void_p)
+                else:
+                    assert arg.split()[0] == "int64_t", f"{src.name}: {name} takes {arg!r}: neither a pointer nor int64_t"
+                    kinds.append(ctypes.c_int64)
+            assert name not in found, f"{name} is defined twice"
+            found[name] = kinds
+    return found
+
+
+def test_c_signatures_match_the_sources():
+    """_build.SIGNATURES against the extern "C" functions of the sources, both
+    ways: a wrong argtype cuts a pointer to 32 bits without a word."""
+    found = _c_entry_points()
+    assert sorted(found) == sorted(_build.SIGNATURES)
+    assert len(found) >= 17
+
+
+@pytest.mark.parametrize("name", sorted(_build.SIGNATURES))
+def test_c_signature(name):
+    assert _c_entry_points()[name] == _build.SIGNATURES[name]
