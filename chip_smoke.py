@@ -7,8 +7,8 @@ line each, and any failure raises and exits nonzero:
 1. device: the card's name, ``nvidia-smi``'s name and power limit, versions;
 2. build: the CUDA kernels from ``ndzip_tpu_torch/csrc`` with nvcc, one nvcc
    per source, all started together; what ``ptxas -v`` says of the 1D and the
-   2D/3D fp32 kernels (registers, shared memory, spills) and the CTAs an SM
-   holds of each;
+   2D/3D fp32 kernels and of the three fp64 encoders (registers, shared
+   memory, spills) and the CTAs an SM holds of each;
 3. each kernel against its plain PyTorch version on the card, exact: the 1D
    kernels on small fp32 1D cases (borders, zeros, incompressible bits,
    constants, one block, special floats; the decoder also on the stream
@@ -26,12 +26,14 @@ line each, and any failure raises and exits nonzero:
    four fp64 kernels on tests/test_pallas.py's fp64 shapes (an odd block
    count with the header's pad word, borders, 2D/3D) and on zeros, random
    64-bit words, a constant, special floats and one all-border grid; each
-   decode reads the plain stream with -1 written past its length;
+   decode reads the plain stream with -1 written past its length, and each
+   encoder also runs 20 times in a row and six times on two CUDA streams;
 4. the paths through the public entry points: ``compress_device`` then
    ``decompress_device(stream[:length], shape, dtype)``, fp32 1D at 2^24
    elements (bench.py's headline data) and 2^28 + 17, fp32 2D/3D at
    bench.py's CESM 1800x3600, 256^3 and 512x512x2048 (2 GiB) cells, then
-   fp64 at bench.py's 1D 2^23 and 512^3 (1 GiB) cells: streams equal to the
+   fp64 at bench.py's 1D 2^23 and 512^3 (1 GiB) cells and its 1D formula at
+   2^27 + 17 (1 GiB, made on the card): streams equal to the
    plain version's on the card, bit-exact round trips, and the kernels'
    launch counts over each path, counted from 0 just before it. The tests
    hold the plain version's stream against the reference package byte for
@@ -39,7 +41,11 @@ line each, and any failure raises and exits nonzero:
 5. timing with CUDA events: median of 10 runs after a warm-up, compress and
    decompress against the plain version and a device-to-device ``copy_``,
    per size and cell; then each kernel's mean device time per call from
-   ``torch.profiler``; and for each of the eight codec kernels a ``[bound]``
+   ``torch.profiler`` (a trace that holds fewer or more launches than REPS
+   calls make, or a launch under half its kernel's median, is taken again,
+   and ``[profile]`` says which check caught it; after three such traces the
+   time is taken with CUDA events and the line says so); and for each of the eight
+   codec kernels a ``[bound]``
    line: the bytes it must move at that size (input read once, output written
    once, the stream as long as this run's data makes it), the time the card's
    memory needs for them at ``HBM_BYTES_PER_S``, the kernel's device time and
@@ -59,7 +65,8 @@ line each, and any failure raises and exits nonzero:
 7. ``ubench.stage_benchmarks`` at 64 MiB for fp32 in 1, 2 and 3 dims and fp64
    in 3, one line per stage with the card, with the stage kernels' launch
    counts over it, counted from 0 just before it; then each stage kernel
-   against its plain version on ubench's working sets, exact, then timed:
+   against its plain version on ubench's working sets, exact, then timed
+   (device times by CUDA events, see ``event_device_us``):
    P1 and P2 at 2^24 (4096 blocks), P3 at 256^3 and 4096x4096 fp32 and
    192^3 fp64 (scatters into grids of -1s), each with its ``[bound]`` line;
    P3 also against the one PyTorch call that computes the same function (a
@@ -72,7 +79,8 @@ placement stages on the whole blocks of the fp32 1D cases, and the keep
 mask on dev/mosaic_repro.py's input, on random words and on the dense rows
 of 8 blocks.
 
-The last two lines are the kernels' JSON record and
+Before them a ``[done]`` line gives the script's wall time and the traces
+taken again. The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Without a CUDA device it exits nonzero
 before printing any result.
 """
@@ -155,6 +163,16 @@ def bench_data64(n: int) -> np.ndarray:
     return np.sin(np.arange(n, dtype=np.float64) * 1e-4) + 0.001 * rng.standard_normal(n)
 
 
+def line64(dev, n: int):
+    """bench_data64's formula at n elements, made on the card with a
+    torch.Generator seeded with SEED."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return (torch.sin(torch.arange(n, dtype=torch.float64, device=dev) * 1e-4)
+            + 1e-3 * torch.randn(n, dtype=torch.float64, device=dev, generator=gen))
+
+
 def cube64(dev):
     """bench.py's fp64 512^3 cell (1 GiB): sin(z) cos(y) sin(2x) + 1e-3 * N(0, 1)
     in float64, made on the card with a torch.Generator seeded with SEED."""
@@ -166,31 +184,156 @@ def cube64(dev):
     return d + 1e-3 * torch.randn((512, 512, 512), dtype=torch.float64, device=dev, generator=gen)
 
 
+#: traces that device_us and flushed_and_warm took again, by the check that caught them, and the traces
+#: whose one-call step came back empty
+RETAKES = {"no device activity": 0, "fewer or more launches": 0, "a launch under half its kernel's median": 0,
+           "flushed and back to back apart by more than AGREE": 0}
+EMPTY_ONE_CALL = {"traces": 0}
+#: device times that fell back to CUDA events after three failed traces or trace pairs
+BY_EVENTS = {"device_us": 0, "flushed_and_warm": 0}
+AGREE = 0.6  # least ratio of the flushed and the back-to-back device time of one function
+PAD_CYCLES = 40_000_000    # a spin kernel of about 20 ms on an H100 (1.98 GHz), on either side of traced calls
+LEAD_CYCLES = 200_000_000  # about 100 ms of spin that opens a trace's first recorded step
+
+
+def traced_launches(fn, flush=None) -> tuple[dict[str, list[float]], dict[str, list[float]]]:
+    """The device time in us of each launch of each kernel that one call of
+    ``fn`` and REPS calls make under torch.profiler, by the kernel's name;
+    with ``flush`` run before each of the REPS calls and its kernels left out.
+
+    Traces lost records of short kernels late in the run: those that ran in
+    the first 20 ms or so of device time after the profiler's warm-up step
+    (a lone call there, or one to four of ten behind a 20 ms spin), and a
+    few at a trace's end without device work after them. So one profiler
+    session holds a warm-up call that the profiler traces and drops (the
+    schedule's ``warmup``), a step that opens with a spin of about 100 ms
+    (LEAD_CYCLES) and holds the REPS calls, and a step with the one call,
+    each call group between spins of about 20 ms (PAD_CYCLES); the spins are
+    left out like the flush. The one call's launches are those that start
+    after the last step does: the spins keep the split 40 ms from either
+    group, wider than the skews seen between the card's and the host's
+    timestamps."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+
+    skip = getattr(flush, "keys", ())
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=2, repeat=1)) as prof:
+        fn()
+        torch.cuda.synchronize()
+        prof.step()
+        torch.cuda._sleep(LEAD_CYCLES)
+        torch.cuda._sleep(PAD_CYCLES)
+        for _ in range(REPS):
+            if flush:
+                flush()
+            fn()
+        torch.cuda._sleep(PAD_CYCLES)
+        torch.cuda.synchronize()
+        prof.step()
+        torch.cuda._sleep(PAD_CYCLES)
+        fn()
+        torch.cuda._sleep(PAD_CYCLES)
+        torch.cuda.synchronize()
+        prof.step()
+    events = prof.events()
+    last_step = max(e.time_range.start for e in events
+                    if e.device_type.name == "CPU" and e.name.startswith("ProfilerStep"))
+    one, calls = {}, {}
+    for e in events:  # kernels and copies; the step annotations and the spins are not the function's
+        if (e.device_type.name == "CUDA" and e.key not in skip and not e.key.startswith("ProfilerStep")
+                and "spin_kernel" not in e.key):
+            (one if e.time_range.start >= last_step else calls).setdefault(e.key, []).append(e.device_time_total)
+    return one, calls
+
+
 def device_us(fn, flush=None) -> tuple[float, str]:
     """Mean device time per call of what ``fn`` launches, from torch.profiler
     over REPS calls (the profiler's cost is inside): the sum in us, and the
     breakdown by kernel as text. With ``flush`` (see ``l2_flush``) that runs
     before every call, so that ``fn`` finds none of its bytes in the L2, and
-    the flush's own kernels are left out of the sum. Now and then a trace
-    comes back without any device activity; it is then taken again, and the
-    script fails if three in a row hold none."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
+    the flush's own kernels are left out of the sum.
 
-    skip = flush.keys if flush else ()
+    A trace can come back without device activity or with part of it, so
+    each is checked and taken again if it fails: it must hold every kernel
+    that one call launches (one call traced just after the REPS calls, in
+    the same session) REPS times that often, and no launch of a kernel may
+    take under half the median of its kernel's launches. The lone call's
+    step can come back empty (``traced_launches``); each kernel's count must
+    then be a whole multiple of REPS, and ``EMPTY_ONE_CALL`` counts it. ``RETAKES`` counts what each check
+    caught. After three failed traces in a row no trace is averaged: the
+    time is ``event_device_us``'s, the text says so, and ``BY_EVENTS``
+    counts it."""
+    import statistics
+
     for _attempt in range(3):
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(REPS):
-                if flush:
-                    flush()
-                fn()
-            torch.cuda.synchronize()
-        rows = sorted(((e.device_time_total / REPS, e.key.split("(")[0]) for e in prof.key_averages()
-                       if e.device_type.name == "CUDA" and e.device_time_total and e.key not in skip), reverse=True)
-        if rows:
+        one, launches = traced_launches(fn, flush)
+        one = {key: len(us) for key, us in one.items()}
+        counts = {key: len(us) for key, us in launches.items()}
+        if launches and not one:
+            EMPTY_ONE_CALL["traces"] += 1
+        if not launches:
+            why = "no device activity"
+        elif (counts != {key: REPS * n for key, n in one.items()} if one
+              else any(n % REPS for n in counts.values())):
+            why = "fewer or more launches"
+        elif any(min(us) < 0.5 * statistics.median(us) for us in launches.values()):
+            why = "a launch under half its kernel's median"
+        else:
+            rows = sorted(((sum(us) / REPS, key.split("(")[0]) for key, us in launches.items()), reverse=True)
             return sum(us for us, _ in rows), "; ".join(f"{key} {us:.2f}" for us, key in rows)
-    fail("torch.profiler gave no device activity in three traces of one function")
+        RETAKES[why] += 1
+        print(f"[profile] trace taken again: {why} (one call {one}, {REPS} calls {counts})", flush=True)
+    us = event_device_us(fn, flush)
+    BY_EVENTS["device_us"] += 1
+    print(f"[profile] no whole trace in three: device time {us:.2f} us by CUDA events", flush=True)
+    return us, f"by CUDA events (no whole trace in three) {us:.2f}"
+
+
+def event_device_us(fn, flush=None) -> float:
+    """Mean device time in us per call of ``fn`` by CUDA events, which lose
+    nothing: REPS calls queued behind a spin of about 20 ms (PAD_CYCLES), so
+    that the host has queued them all before the card reaches the first,
+    each call alone between two events and ``flush`` before it, outside
+    them. Unlike a trace it counts each call's two events, the card's start
+    of its launches and the gaps between them: on phase 7's stage kernels
+    it read 8-16 us more than the profiler had (PERF.md)."""
+    import torch
+
+    pairs = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)) for _ in range(REPS)]
+    torch.cuda.synchronize()
+    torch.cuda._sleep(PAD_CYCLES)
+    for start, end in pairs:
+        if flush:
+            flush()
+        start.record()
+        fn()
+        end.record()
+    torch.cuda.synchronize()
+    return sum(start.elapsed_time(end) for start, end in pairs) / REPS * 1e3
+
+
+def flushed_and_warm(fn, flush, traced=True) -> tuple[float, str, float]:
+    """``device_us`` of ``fn`` with the L2 flushed before every call (the sum
+    and its text) and back to back (the sum). A trace whose launches are all
+    cut short passes device_us's checks, so the two are held to each other:
+    they differ by the L2 alone (at most a quarter at 64 MiB), and where one
+    is under AGREE times the other both are taken again; after three such
+    pairs in a row, and with ``traced`` false from the start, both are
+    ``event_device_us``'s."""
+    for _attempt in range(3 if traced else 0):
+        us, parts = device_us(fn, flush)
+        warm_us = device_us(fn)[0]
+        if min(us, warm_us) >= AGREE * max(us, warm_us):
+            return us, parts, warm_us
+        RETAKES["flushed and back to back apart by more than AGREE"] += 1
+        print(f"[profile] traces taken again: flushed {us:.2f} us and back to back {warm_us:.2f} us ({parts})",
+              flush=True)
+    if traced:
+        BY_EVENTS["flushed_and_warm"] += 1
+    us = event_device_us(fn, flush)
+    return us, f"by CUDA events {us:.2f}", event_device_us(fn)
 
 
 def l2_flush(dev):
@@ -199,19 +342,13 @@ def l2_flush(dev):
     nothing timed here launches. ``keys`` holds the profiler's names of its
     kernels, read from a trace of the flush alone."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
 
     scratch = torch.zeros(64 * 2**20, dtype=torch.float32, device=dev)
 
     def flush():
         scratch.cos_()
 
-    flush()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        flush()
-        torch.cuda.synchronize()
-    flush.keys = {e.key for e in prof.key_averages() if e.device_type.name == "CUDA" and e.device_time_total}
+    flush.keys = set(traced_launches(flush)[1])
     if not flush.keys:
         fail("torch.profiler gave no device activity for the L2 flush")
     return flush
@@ -339,6 +476,7 @@ def main() -> int:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this script needs an NVIDIA GPU")
+    started = time.perf_counter()
 
     import ndzip_tpu_torch as nt
     from ndzip_tpu_torch import _build, api, codec_cuda, codec_torch, stages, ubench, utils
@@ -365,7 +503,10 @@ def main() -> int:
             ("5ndzip16encode_blocks_ndILi2E", "2D fp32 encode_blocks_nd", lib.ndzip_encode_fp32_nd_ctas_per_sm(2)),
             ("5ndzip16encode_blocks_ndILi3E", "3D fp32 encode_blocks_nd", lib.ndzip_encode_fp32_nd_ctas_per_sm(3)),
             ("5ndzip16decode_blocks_ndILi2E", "2D fp32 decode_blocks_nd", lib.ndzip_decode_fp32_nd_ctas_per_sm(2)),
-            ("5ndzip16decode_blocks_ndILi3E", "3D fp32 decode_blocks_nd", lib.ndzip_decode_fp32_nd_ctas_per_sm(3))):
+            ("5ndzip16decode_blocks_ndILi3E", "3D fp32 decode_blocks_nd", lib.ndzip_decode_fp32_nd_ctas_per_sm(3)),
+            ("5ndzip15encode_blocks64E", "1D fp64 encode_blocks64", lib.ndzip_encode_fp64_ctas_per_sm()),
+            ("5ndzip18encode_blocks64_ndILi2E", "2D fp64 encode_blocks64_nd", lib.ndzip_encode_fp64_nd_ctas_per_sm(2)),
+            ("5ndzip18encode_blocks64_ndILi3E", "3D fp64 encode_blocks64_nd", lib.ndzip_encode_fp64_nd_ctas_per_sm(3))):
         lines = _build.ptxas_lines(kernel)
         if len(lines) != 1 or ctas < 1:
             fail(f"ptxas reported the kernel {what} {len(lines)} times, or no CTA of it fits an SM ({ctas})")
@@ -540,6 +681,22 @@ def main() -> int:
                  f"u32 words, length {int(length)} vs {L})")
         if "random bits" in label and int(lengths.min()) != HC + HC // 64:
             fail("random bits did not give every fp64 block the 4160-word maximum")
+        # the one-pass encoder again and again, and on two CUDA streams at once: a call's status
+        # words are its own
+        encode = codec_cuda._encode_blocks_fp64 if dims == 1 else codec_cuda._encode_interior_fp64
+        side = [torch.cuda.Stream(), torch.cuda.Stream()]
+        torch.cuda.synchronize()
+        again = [encode(w) for _ in range(20)]
+        for i in range(6):
+            with torch.cuda.stream(side[i % 2]):
+                again.append(encode(w))
+        torch.cuda.synchronize()
+        for i, (stream, length) in enumerate(again):
+            e = max_abs_err(stream[:L], ref_stream[:L]) if int(length) == L else -1
+            err[enc] = max(err[enc], e)
+            if e:
+                fail(f"fp64 encode kernel != plain on {label!r}, call {i} of 20 in a row and 6 on two CUDA streams")
+        del again
         out = (codec_cuda._decode_blocks_fp64(garbage, shape[0]) if dims == 1
                else codec_cuda._decode_interior_fp64(garbage, shape))
         blocks = codec_torch.decode_blocks_ref(garbage, num_hc, dims, 64)
@@ -550,7 +707,8 @@ def main() -> int:
         if e or differing:
             fail(f"fp64 decode kernel != plain or != input on {label!r} (max_abs_err {e}, "
                  f"{differing} words differ from the input)")
-        print(f"[3 kernels fp64] {label}: blocks={num_hc} length={L} u32 words, {enc} == plain, "
+        print(f"[3 kernels fp64] {label}: blocks={num_hc} length={L} u32 words, {enc} == plain (26 more calls, "
+              f"6 of them on two CUDA streams), "
               f"{dec} == plain == input (0 differing words)", flush=True)
 
     # ---- 3, the stage kernels against their plain versions, exact
@@ -705,20 +863,22 @@ def main() -> int:
 
     flush = l2_flush(dev)
 
-    def record(key, what, kernel, plain_ms, bytes_in, bytes_out, library=None):
+    def record(key, what, kernel, plain_ms, bytes_in, bytes_out, library=None, traced=True):
         """One kernel at one size: the wrapper's event median, its device time from the profiler
         with the L2 flushed before every call (and, beside it, back to back), and the least time
         the card's memory needs for the bytes the function must move (each input byte read once,
         each output byte written once). The share is bound / flushed device time: back to back a
         64 MiB input is served in part by the L2, which the bound does not know. The first size of
-        a kernel goes to the JSON line."""
+        a kernel goes to the JSON line. With ``traced`` false the device times are taken by CUDA
+        events alone (``event_device_us``)."""
         ms = median_ms(kernel)
-        us, parts = device_us(kernel, flush)
-        warm_us = device_us(kernel)[0]
+        us, parts, warm_us = flushed_and_warm(kernel, flush, traced)
         bound_ms = (bytes_in + bytes_out) / HBM_BYTES_PER_S * 1e3
         library_ms = median_ms(library) if library else None
-        library_text = (f"{library_ms:.4f} ms (device {device_us(library, flush)[0]:.2f} us, back to back "
-                        f"{device_us(library)[0]:.2f} us)") if library else "none"
+        if library:
+            lib_us, _, lib_warm_us = flushed_and_warm(library, flush, traced)
+        library_text = (f"{library_ms:.4f} ms (device {lib_us:.2f} us, back to back {lib_warm_us:.2f} us)"
+                        if library else "none")
         share = bound_ms * 1e3 / us
         # a kernel ends when its stores reach the 50 MB L2, not the memory: at 64 MiB it can end
         # before the memory's rate allows, and the share is then not given
@@ -785,8 +945,9 @@ def main() -> int:
         torch.cuda.empty_cache()
     launches.update(launches_nd)
 
-    # ---- 4 and 5 for the fp64 path: bench.py's 1D 2^23 and 512^3 cells
+    # ---- 4 and 5 for the fp64 path: bench.py's 1D 2^23 and 512^3 cells, and its 1D formula at 1 GiB
     cells64 = (("fp64 2^23", lambda: torch.from_numpy(bench_data64(2**23)).to(dev)),
+               ("fp64 2^27+17", lambda: line64(dev, 2**27 + 17)),
                ("fp64 512^3", lambda: cube64(dev)))
     for label, make in cells64:
         x = make()
@@ -937,9 +1098,9 @@ def main() -> int:
         blocks, yard = codec_torch.gather_blocks(g, g.shape), torch.empty_like(g)
         out_k, out_p = torch.full_like(g, -1), torch.full_like(g, -1)
         suffix, what = ("64" if dtype == "double" else ""), f"{'x'.join(map(str, g.shape))} {g.dtype}"
+        # events only: the profiler loses most of a device-to-device memcpy's records
         print(f"[7 stage vs plain] copy_ at {what} (the yardstick): {median_ms(lambda: yard.copy_(g)):.4f} ms "
-              f"(median of {REPS}); device us per call: {device_us(lambda: yard.copy_(g))[1]} on {card}",
-              flush=True)
+              f"(median of {REPS}) on {card}", flush=True)
         # the library call: the grid as (blocks per axis, side) pairs, blocks' axes moved to the front
         side, nbytes = {2: 64, 3: 16}[dims], g.numel() * g.element_size()
         split = [e for extent in g.shape for e in (extent // side, side)]
@@ -960,9 +1121,11 @@ def main() -> int:
                   (f"scatter_blocks_nd{suffix}", what, lambda b=blocks, o=out_k: (stages.scatter_blocks_nd(b, o), o)[1],
                    lambda b=blocks, o=out_p: (codec_torch.scatter_blocks(b, o.shape, o), o)[1], nbytes, nbytes,
                    library_scatter)]
+    # device times by CUDA events: late in a run torch.profiler lost records of these short kernels in
+    # trace after trace, whatever spins and steps stood around the calls (PERF.md)
     for key, what, kernel, plain, bytes_in, bytes_out, library in timed:
         hold(key, kernel(), plain(), f"{what} (phase 7)")
-        record(key, what, kernel, median_ms(plain), bytes_in, bytes_out, library)
+        record(key, what, kernel, median_ms(plain), bytes_in, bytes_out, library, traced=False)
 
     if "jax" in sys.modules:
         fail("JAX was imported")
@@ -995,6 +1158,10 @@ def main() -> int:
     kernels += [{"name": k, "route": "cuda", "source": f"ndzip_tpu_torch/csrc/{src}", "replaces": rep,
                  "launches": stage_launches[k], "max_abs_err": serr[k], **kernel_rows[k]}
                 for k, (src, rep) in stage_sources.items()]
+    print(f"[done] every phase passed in {time.perf_counter() - started:.1f} s of wall time; profiler traces "
+          f"taken again: {RETAKES}; traces whose one-call step came back empty: {EMPTY_ONE_CALL['traces']}; "
+          f"device times by CUDA events after three failed traces: {BY_EVENTS}",
+          flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                              "count": torch.cuda.device_count()}}), flush=True)

@@ -45,13 +45,14 @@ SIGNATURES = {
     # dims: the CTAs of the 2D or 3D fp32 kernels that one SM holds, or minus a CUDA error
     "ndzip_encode_fp32_nd_ctas_per_sm": [_I64],
     "ndzip_decode_fp32_nd_ctas_per_sm": [_I64],
-    # the fp64 kernels take the arguments of the fp32 ones, with num_hc words of scratch for the
-    # block lengths where those take status words; words, out and sizes count u64 words, except
-    # the stream's size, which counts u32 words
+    # the fp64 kernels take the arguments of the fp32 ones; words, out and sizes count u64
+    # words, except the stream's size and length, which count u32 words
     "ndzip_encode_fp64": [_P, _I64, _I64, _P, _P, _P, _P],
     "ndzip_decode_fp64": [_P, _I64, _I64, _I64, _P, _P],
+    "ndzip_encode_fp64_ctas_per_sm": [],
     "ndzip_encode_fp64_nd": [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P],
     "ndzip_decode_fp64_nd": [_P, _I64, _I64, _I64, _I64, _I64, _P, _P],
+    "ndzip_encode_fp64_nd_ctas_per_sm": [_I64],
     # stage kernels (stages.py). words, num_hc, out, cuda stream
     "ndzip_placement_floor": [_P, _I64, _P, _P],
     "ndzip_placement_compute": [_P, _I64, _P, _P],

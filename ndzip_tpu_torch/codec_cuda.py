@@ -205,10 +205,11 @@ def _check_stream64(stream: torch.Tensor, num_hc: int):
 
 
 def _encode_buffers(shape, num_hc: int, device):
-    """The stream buffer of the fp64 compressed bound, the lengths scratch
-    and the length scalar of an fp64 encode."""
+    """The stream buffer of the fp64 compressed bound, the look-back's status
+    words and ticket (this call's own, cleared by the launch) and the length
+    scalar of an fp64 encode."""
     return (torch.empty(fmt.compressed_bound_u32(shape, 64), dtype=torch.int32, device=device),
-            torch.empty(num_hc, dtype=torch.int32, device=device),
+            torch.empty(num_hc + 1, dtype=torch.int64, device=device),
             torch.empty((), dtype=torch.int32, device=device))
 
 
@@ -225,9 +226,9 @@ def _encode_blocks_fp64(words: torch.Tensor):
     if words.data_ptr() % 16:
         raise ValueError("words must be 16-byte aligned")
     lib = _build.load()
-    stream, lengths, length = _encode_buffers((n,), num_hc, words.device)
+    stream, status, length = _encode_buffers((n,), num_hc, words.device)
     _launch(lib.ndzip_encode_fp64, words, words.data_ptr(), num_hc, n - num_hc * HC,
-            stream.data_ptr(), lengths.data_ptr(), length.data_ptr())
+            stream.data_ptr(), status.data_ptr(), length.data_ptr())
     LAUNCHES["encode64"] += 1
     return stream, length
 
@@ -250,17 +251,18 @@ def _decode_blocks_fp64(stream: torch.Tensor, n: int) -> torch.Tensor:
 
 def _encode_interior_fp64(words: torch.Tensor):
     """Encode a 2D/3D grid of int64 words with at least one whole block on
-    the card: blocks read straight from the grid, border copied after them.
-    Returns ``(stream, length)`` as ``_encode_blocks_fp64``. No host sync."""
+    the card, in one launch that reads the grid once: blocks read straight
+    from the grid, border copied after them. Returns ``(stream, length)`` as
+    ``_encode_blocks_fp64``. No host sync."""
     _check_cuda_words("words", words, dims=(2, 3), dtype=torch.int64)
     shape = tuple(words.shape)
     num_hc = fmt.num_hypercubes(shape)
     if num_hc == 0:
         raise ValueError(f"shape {shape} has no whole block: it is all border")
     lib = _build.load()
-    stream, lengths, length = _encode_buffers(shape, num_hc, words.device)
+    stream, status, length = _encode_buffers(shape, num_hc, words.device)
     _launch(lib.ndzip_encode_fp64_nd, words, words.data_ptr(), len(shape), *_extents(shape),
-            stream.data_ptr(), lengths.data_ptr(), length.data_ptr())
+            stream.data_ptr(), status.data_ptr(), length.data_ptr())
     LAUNCHES["encode64_nd"] += 1
     return stream, length
 

@@ -1,8 +1,9 @@
 // Pieces shared by the fp64 encode and decode kernels of the ndzip format
 // (1D in encode_fp64.cu/decode_fp64.cu, 2D/3D in encode_fp64_nd.cu/
 // decode_fp64_nd.cu), on native 64-bit words: the word transforms, the
-// warp-wide 64x64 bit transpose, the scans, the per-block encode tail and
-// decode head, the header scan and the border copies. The block size, the
+// warp-wide 64x64 bit transposes (the decoders' and the encoders' cheaper
+// one), the scans, the decoders' block head, the encoders' one-pass run with
+// its look-back, and the border copies. The block size, the
 // thread layout, the border map (Border) and the 32-bit warp scan come from
 // common.cuh, which the fp32 kernels share and which this file leaves as it
 // is.
@@ -102,12 +103,6 @@ __device__ __forceinline__ void chunk_exclusive_scan64(uint32_t* counts, int lan
     counts[2 * lane + 1] = excl + c0;
 }
 
-struct EncodeShared64 {
-    u64 x[kPadded64];
-    u64 heads[kChunks64];
-    uint32_t offsets[kChunks64];  // per-chunk counts, then their exclusive scan
-};
-
 struct DecodeShared64 {
     u64 x[kPadded64];
     u64 heads[kChunks64];
@@ -117,69 +112,6 @@ struct DecodeShared64 {
 
 // The body's first u64 word in a stream of num_hc blocks.
 __device__ __forceinline__ uint64_t header_words64(uint64_t num_hc) { return (num_hc + 1) / 2; }
-
-// The encoders' work after the transform (s.x holds the transformed block,
-// and a barrier has passed). Without kPlace: write the block's length to
-// lengths[b], 64 heads plus its nonzero transposed words; a chunk's head is
-// the OR of its words before the transpose (golden.encode_blocks_dense), so
-// the count is that OR's popcount, with no transpose. __reduce_or_sync takes
-// 32 bits, so the two halves are reduced apart. With kPlace, once the header
-// is written: transpose each chunk, head = the bit-reversed 64-bit ballot
-// (bit 63-i set iff transposed word i != 0), scan the counts, and write the
-// heads and nonzero words from u64 word hw + (b ? header[b-1] : 0).
-template <bool kPlace>
-__device__ __forceinline__ void encode_chunks64(EncodeShared64& s, uint64_t b, uint64_t num_hc,
-                                                uint32_t* __restrict__ lengths,
-                                                uint32_t* __restrict__ stream) {
-    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-    if (!kPlace) {
-        uint32_t n = 0;
-#pragma unroll 4
-        for (int k = 0; k < kChunksPerWarp64; ++k) {
-            const int c = warp * kChunksPerWarp64 + k;
-            const u64 v = s.x[pad64(64 * c + lane)] | s.x[pad64(64 * c + lane + 32)];
-            n += __popc(__reduce_or_sync(kFull, static_cast<uint32_t>(v))) +
-                 __popc(__reduce_or_sync(kFull, static_cast<uint32_t>(v >> 32)));
-        }
-        if (lane == 0) s.offsets[warp] = n;
-        __syncthreads();
-        if (t == 0) {
-            uint32_t length = kChunks64;
-            for (int w = 0; w < kWarps; ++w) length += s.offsets[w];
-            lengths[b] = length;
-        }
-        return;
-    }
-
-#pragma unroll 4
-    for (int k = 0; k < kChunksPerWarp64; ++k) {
-        const int c = warp * kChunksPerWarp64 + k;
-        u64 w0 = s.x[pad64(64 * c + lane)], w1 = s.x[pad64(64 * c + lane + 32)];
-        warp_transpose_bits64(w0, w1, lane);
-        s.x[pad64(64 * c + lane)] = w0;
-        s.x[pad64(64 * c + lane + 32)] = w1;
-        const u64 nz = (static_cast<u64>(__ballot_sync(kFull, w1 != 0)) << 32) | __ballot_sync(kFull, w0 != 0);
-        if (lane == 0) {
-            s.heads[c] = __brevll(nz);
-            s.offsets[c] = __popcll(nz);
-        }
-    }
-    __syncthreads();
-    if (warp == 0) chunk_exclusive_scan64(s.offsets, lane);
-    __syncthreads();
-
-    u64* dst = reinterpret_cast<u64*>(stream) + header_words64(num_hc) + (b ? stream[b - 1] : 0u);
-    if (t < kChunks64) dst[t] = s.heads[t];
-#pragma unroll 4
-    for (int k = 0; k < kChunksPerWarp64; ++k) {
-        const int c = warp * kChunksPerWarp64 + k;
-        const u64 present = __brevll(s.heads[c]);  // bit i <=> transposed word i != 0
-        const u64 w0 = s.x[pad64(64 * c + lane)], w1 = s.x[pad64(64 * c + lane + 32)];
-        u64* out = dst + kChunks64 + s.offsets[c];
-        if (w0) out[__popcll(present & below(lane))] = w0;
-        if (w1) out[__popcll(present & below(lane + 32))] = w1;
-    }
-}
 
 // The decoders' work before the inverse transform: read block b's 64 heads
 // from its start hw + (b ? header[b-1] : 0), expand each chunk's nonzero
@@ -220,15 +152,6 @@ __device__ __forceinline__ void expand_chunks64(DecodeShared64& s, const uint32_
     __syncthreads();
 }
 
-// A border CTA of the encoders' placement pass: its share of the border of
-// `words` to the stream, after the last body word (hw + header[num_hc-1]).
-__device__ __forceinline__ void encode_border64(const u64* __restrict__ words, const Border& border,
-                                                uint64_t num_hc, uint64_t c, uint32_t* __restrict__ stream) {
-    u64* dst = reinterpret_cast<u64*>(stream) + header_words64(num_hc) + stream[num_hc - 1];
-    for (uint64_t i = c * kHcSize + threadIdx.x; i < border_end(border, c); i += kThreads)
-        dst[i] = words[border.offset(i)];
-}
-
 // A border CTA of the decoders: its share of the border from the stream
 // (`size` u32 words, after the last body word) to its places in the grid.
 __device__ __forceinline__ void decode_border64(const uint32_t* __restrict__ stream, uint64_t size,
@@ -240,36 +163,154 @@ __device__ __forceinline__ void decode_border64(const uint32_t* __restrict__ str
         out[border.offset(i)] = load_clamped64(words, size / 2, from + i);
 }
 
-// common.cuh's scan_lengths for fp64: the header entries count u64 words, the
-// pad entry after them is zeroed when n is odd (the stream buffer is not
-// cleared), and the stream length is written in u32 words,
-// 2 * (hw + body + border), so the host never waits.
-static __global__ void __launch_bounds__(1024)
-scan_lengths64(const uint32_t* __restrict__ lengths, uint64_t n, uint64_t border,
-               uint32_t* __restrict__ header, int32_t* __restrict__ length) {
-    __shared__ uint32_t warp_offset[32];
+// ------------------------------------------------------------------------
+// One-pass encode on u64 words (encode_fp64.cu, encode_fp64_nd.cu): common.cuh's
+// tickets, status words and look-back as B1 and B3 use them, with the run
+// counted, compacted and stored in u64 words.
+
+// warp_transpose_bits64 with common.cuh's 13-instruction TransposeLane. The
+// 64x64 transpose is a swap and four 32x32 transposes: with rows r < 32 in a
+// and r + 32 in b, the quadrant of rows 32.. and bits 63..32 (b's high
+// halves) goes to rows ..31 and bits 31..0 (a's low halves) and back, each
+// quadrant transposed in place. So the round at distance 32 of
+// warp_transpose_bits64 is a swap of a's low half with b's high half, which
+// costs no instruction, and the rounds at 16 .. 1 are TransposeLane on each of
+// the four 32-bit halves: each 64-bit mask of those rounds is the 32-bit mask
+// twice, and the bits a shift moves across bit 32 land where the mask drops
+// them. 52 instructions for 64 words, where warp_transpose_bits64 (which the
+// decoders keep) runs two 64-bit shuffles and 64-bit masks in each round.
+struct TransposeLane64 {
+    TransposeLane half;
+
+    __device__ __forceinline__ explicit TransposeLane64(int lane) : half(lane) {}
+
+    // Lane r holds rows r (a) and r + 32 (b) of a chunk; on return lane i
+    // holds transposed words i (a) and i + 32 (b), as warp_transpose_bits64.
+    __device__ __forceinline__ void operator()(u64& a, u64& b) const {
+        const uint32_t a_hi = half(static_cast<uint32_t>(a >> 32)), a_lo = half(static_cast<uint32_t>(b >> 32));
+        const uint32_t b_hi = half(static_cast<uint32_t>(a)), b_lo = half(static_cast<uint32_t>(b));
+        a = (static_cast<u64>(a_hi) << 32) | a_lo;
+        b = (static_cast<u64>(b_hi) << 32) | b_lo;
+    }
+};
+
+// A warp's 8 chunks lie in 544 consecutive slots of the padded block: chunk
+// k's words `lane` and `lane + 32` at chunk_slots64(x, warp, lane)[68 * k]
+// and [68 * k + 34] (the 16 words of a half-warp lie side by side).
+constexpr int kChunkStride64 = 68, kUpperHalf64 = 34;
+__device__ __forceinline__ u64* chunk_slots64(u64* x, int warp, int lane) {
+    return x + pad64(64 * kChunksPerWarp64 * warp + lane);
+}
+
+struct EncodeRunShared64 {
+    u64 x[kPadded64];             // the block, then each warp's run in its own 512 words
+    u64 heads[kChunks64];
+    uint32_t warp_count[kWarps];  // nonzero words of each warp's 8 chunks
+    uint32_t block;               // the CTA's ticket
+    uint32_t length;              // u64 words of the run
+    uint32_t exclusive;           // body u64 words of all blocks before this one
+};
+
+// The 1D encoder's load and transform: load the 16-byte aligned 4096-word
+// block `block` into x with 16-byte loads, each word rotated left by one,
+// less its rotated left neighbour (word 0 stays), complement-negative: the
+// differences taken in registers on the way in, as grid_nd64.cuh's
+// load_block64 takes those along the rows. The neighbour comes from the lane
+// before; lane 0 reads it again, from the L1. Ends with a barrier.
+__device__ __forceinline__ void load_transform64_1d(const u64* __restrict__ block, u64* x) {
+    const int t = threadIdx.x, lane = t & 31;
+    const ulonglong2* src = reinterpret_cast<const ulonglong2*>(block);
+#pragma unroll
+    for (int k = 0; k < kHcSize / 2 / kThreads; ++k) {
+        const int q = t + k * kThreads;
+        const ulonglong2 v = src[q];
+        const u64 a = rotl1(v.x), c = rotl1(v.y);
+        u64 left = __shfl_up_sync(kFull, c, 1);
+        if (lane == 0) left = q ? rotl1(block[2 * q - 1]) : 0ull;
+        x[pad64(2 * q)] = complement_negative(a - left);
+        x[pad64(2 * q + 1)] = complement_negative(c - a);
+    }
+    __syncthreads();
+}
+
+// common.cuh's encode_run on u64 words (s.x holds block b's transformed
+// words and a barrier has passed): a chunk's head is the OR of its 64 words
+// before the transpose, reduced as two 32-bit halves, and its count that
+// OR's popcount, so the length is known, and published as the block's
+// aggregate, before any transpose. Then each warp transposes its 8 chunks
+// (TransposeLane64) and compacts their nonzero words in place, in its own
+// 512 words of s.x: a chunk's words land at or before its own slots, which
+// the warp has read by then, and never on a later chunk's. After that warp 0
+// looks back for the offset, publishes the inclusive sum and writes
+// header[b] (u32, in u64 words); the CTA stores the heads at u64 word hw +
+// s.exclusive, and each warp its words after the words of the warps before
+// it, on two 128-byte lines at a time. One block buffer and no second one
+// for the run: 35 KB a CTA, where a run buffer beside the block (68 KB,
+// three CTAs an SM) was 2-20% slower (PERF.md). On return s.length and
+// s.exclusive are set for all threads.
+__device__ __forceinline__ void encode_run64(EncodeRunShared64& s, uint64_t b, uint64_t num_hc,
+                                             uint64_t* status, uint32_t* __restrict__ stream) {
     const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-    const uint64_t per = (n + 1023) / 1024;
-    const uint64_t begin = t * per < n ? t * per : n;
-    const uint64_t end = begin + per < n ? begin + per : n;
-    uint32_t sum = 0;
-    for (uint64_t i = begin; i < end; ++i) sum += lengths[i];
-    const uint32_t incl = warp_inclusive_scan(sum, lane);
-    if (lane == 31) warp_offset[warp] = incl;
+    const u64* mine = chunk_slots64(s.x, warp, lane);
+    uint32_t count = 0;
+#pragma unroll
+    for (int k = 0; k < kChunksPerWarp64; ++k) {
+        const u64 v = mine[kChunkStride64 * k] | mine[kChunkStride64 * k + kUpperHalf64];
+        const uint32_t lo = __reduce_or_sync(kFull, static_cast<uint32_t>(v));
+        const uint32_t hi = __reduce_or_sync(kFull, static_cast<uint32_t>(v >> 32));
+        count += __popc(lo) + __popc(hi);
+        if (lane == 0) s.heads[kChunksPerWarp64 * warp + k] = (static_cast<u64>(hi) << 32) | lo;
+    }
+    if (lane == 0) s.warp_count[warp] = count;
     __syncthreads();
+    uint32_t at = kChunks64, length = kChunks64;  // where this warp's words go in the run; the run's length
+#pragma unroll
+    for (int w = 0; w < kWarps; ++w) {
+        const uint32_t n = s.warp_count[w];
+        if (w < warp) at += n;
+        length += n;
+    }
+    if (t == 0) store_status(status + b, (b ? kStatusAggregate : kStatusInclusive) | length);
+
+    const TransposeLane64 transpose(lane);
+    const uint32_t below = lanemask_lt(lane);
+    u64* span = s.x + pad64(64 * kChunksPerWarp64 * warp);  // the warp's 512 words; its run's word i at pad64(i)
+    uint32_t put = 0;
+#pragma unroll 4
+    for (int k = 0; k < kChunksPerWarp64; ++k) {
+        u64 a = mine[kChunkStride64 * k], c = mine[kChunkStride64 * k + kUpperHalf64];
+        transpose(a, c);
+        const uint32_t nza = __ballot_sync(kFull, a != 0), nzc = __ballot_sync(kFull, c != 0);
+        if (a) span[pad64(put + __popc(nza & below))] = a;
+        if (c) span[pad64(put + __popc(nza) + __popc(nzc & below))] = c;
+        put += __popc(nza) + __popc(nzc);
+    }
     if (warp == 0) {
-        const uint32_t w = warp_offset[lane];
-        const uint32_t all = warp_inclusive_scan(w, lane);
-        warp_offset[lane] = all - w;
-        if (lane == 31) *length = static_cast<int32_t>(2 * (header_words64(n) + all + border));
+        const uint32_t exclusive = b ? look_back(status, b, lane) : 0u;
+        if (lane == 0) {
+            const uint32_t inclusive = exclusive + length;
+            if (b) store_status(status + b, kStatusInclusive | inclusive);
+            stream[b] = inclusive;
+            s.exclusive = exclusive;
+            s.length = length;
+        }
     }
-    if (t == 0 && (n & 1)) header[n] = 0u;
     __syncthreads();
-    uint32_t run = warp_offset[warp] + incl - sum;
-    for (uint64_t i = begin; i < end; ++i) {
-        run += lengths[i];
-        header[i] = run;
-    }
+
+    u64* dst = reinterpret_cast<u64*>(stream) + header_words64(num_hc) + s.exclusive;
+    if (t < kChunks64) dst[t] = s.heads[t];
+    dst += at;
+    const int skew = static_cast<int>((reinterpret_cast<uintptr_t>(dst) >> 3) & 15);  // words past a line's start
+    for (int i = lane - skew; i < static_cast<int>(put); i += 32)
+        if (i >= 0) dst[i] = span[pad64(i)];
+}
+
+// A border CTA of the 2D/3D encoder: its share of the border of `words` to
+// `dst`, the stream from the u64 word after the last body word on.
+__device__ __forceinline__ void encode_border64(const u64* __restrict__ words, const Border& border, uint64_t c,
+                                                u64* __restrict__ dst) {
+    for (uint64_t i = c * kHcSize + threadIdx.x; i < border_end(border, c); i += kThreads)
+        dst[i] = words[border.offset(i)];
 }
 
 }  // namespace ndzip

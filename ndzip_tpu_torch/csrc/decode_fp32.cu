@@ -113,6 +113,9 @@ decode_blocks(const uint32_t* __restrict__ stream, uint64_t size, uint64_t num_h
             const uint32_t* q = quad_slots + k * (4 * kThreads + 4 * kThreads / 32);
             dst[t + k * kThreads] = make_uint4(q[0], q[1], q[2], q[3]);
         }
+        // the stores above read words of x that other threads wrote; the next block's
+        // expand_run writes x, and the wait on its run's copy does not hold any thread back
+        __syncthreads();
     }
 }
 

@@ -4,17 +4,18 @@ A variant is a directory that holds a full copy of ``csrc/`` with some file
 changed (for example the parent commit's sources beside this tree's). Two
 commands, both for a machine with nvcc and a GPU:
 
-``python -m ndzip_tpu_torch.variants time DIR [DIR ...] [--shapes 256x256x256 ...]``
+``python -m ndzip_tpu_torch.variants time DIR [DIR ...] [--shapes 256x256x256 ...] [--dtype float64]``
     builds each directory into its own library, checks on every shape that
     all variants give the first variant's stream and give the input back,
-    then times the fp32 encode and decode kernels of each variant in turns
+    then times the encode and decode kernels of each variant in turns
     (A, B, ..., A, B, ...): ``--reps`` launches back to back with a CUDA
     event between every two, ``--rounds`` rounds after one that warms up; it
     prints the median of all launches in us, each round's median, the least
     and the greatest launch, and the first launch of each round, which
-    follows another kernel or a pause. 1D shapes go to
-    the 1D kernels, 2D/3D shapes to the nd kernels. Prints what ``ptxas -v``
-    says of the kernels whose name contains ``--ptxas``.
+    follows another kernel or a pause. 1D shapes go to the 1D kernels,
+    2D/3D shapes to the nd kernels, of the fp32 profile or, with ``--dtype
+    float64``, of the fp64 one (int64 words, the fp64 stream bound). Prints
+    what ``ptxas -v`` says of the kernels whose name contains ``--ptxas``.
 
 ``python -m ndzip_tpu_torch.variants sass DIR_A DIR_B [--same FILE.cu ...]``
     compiles each ``.cu`` of both directories to a cubin, dumps its SASS with
@@ -37,7 +38,8 @@ import sys
 import tempfile
 from pathlib import Path
 
-ENTRY_POINTS = ["ndzip_encode_fp32", "ndzip_decode_fp32", "ndzip_encode_fp32_nd", "ndzip_decode_fp32_nd"]
+ENTRY_POINTS = ["ndzip_encode_fp32", "ndzip_decode_fp32", "ndzip_encode_fp32_nd", "ndzip_decode_fp32_nd",
+                "ndzip_encode_fp64", "ndzip_decode_fp64", "ndzip_encode_fp64_nd", "ndzip_decode_fp64_nd"]
 
 
 def _shape(text: str) -> tuple[int, ...]:
@@ -45,8 +47,9 @@ def _shape(text: str) -> tuple[int, ...]:
 
 
 class Variant:
-    """One directory of sources, built and loaded, with the fp32 kernels'
-    wrappers on raw pointers (the arguments of ``_build.SIGNATURES``)."""
+    """One directory of sources, built and loaded, with the codec kernels'
+    wrappers on raw pointers (the arguments of ``_build.SIGNATURES``): fp32
+    for int32 words, fp64 for int64 words."""
 
     def __init__(self, csrc: Path):
         from . import _build
@@ -62,13 +65,15 @@ class Variant:
         from .codec_torch import HC
 
         cs = torch.cuda.current_stream().cuda_stream
+        bits = 8 * words.element_size()
         if words.dim() == 1:
             n = words.numel()
-            err = self.lib.ndzip_encode_fp32(words.data_ptr(), n // HC, n % HC, stream.data_ptr(),
-                                             scratch.data_ptr(), length.data_ptr(), cs)
+            err = getattr(self.lib, f"ndzip_encode_fp{bits}")(words.data_ptr(), n // HC, n % HC, stream.data_ptr(),
+                                                              scratch.data_ptr(), length.data_ptr(), cs)
         else:
-            err = self.lib.ndzip_encode_fp32_nd(words.data_ptr(), words.dim(), *_extents(words.shape),
-                                                stream.data_ptr(), scratch.data_ptr(), length.data_ptr(), cs)
+            err = getattr(self.lib, f"ndzip_encode_fp{bits}_nd")(words.data_ptr(), words.dim(), *_extents(words.shape),
+                                                                 stream.data_ptr(), scratch.data_ptr(),
+                                                                 length.data_ptr(), cs)
         if err:
             raise RuntimeError(f"{self.name}: encode failed with CUDA error {err}")
 
@@ -79,12 +84,14 @@ class Variant:
         from .codec_torch import HC
 
         cs = torch.cuda.current_stream().cuda_stream
+        bits = 8 * out.element_size()
         if out.dim() == 1:
             n = out.numel()
-            err = self.lib.ndzip_decode_fp32(stream.data_ptr(), stream.numel(), n // HC, n % HC, out.data_ptr(), cs)
+            err = getattr(self.lib, f"ndzip_decode_fp{bits}")(stream.data_ptr(), stream.numel(), n // HC, n % HC,
+                                                              out.data_ptr(), cs)
         else:
-            err = self.lib.ndzip_decode_fp32_nd(stream.data_ptr(), stream.numel(), out.dim(),
-                                                *_extents(out.shape), out.data_ptr(), cs)
+            err = getattr(self.lib, f"ndzip_decode_fp{bits}_nd")(stream.data_ptr(), stream.numel(), out.dim(),
+                                                                 *_extents(out.shape), out.data_ptr(), cs)
         if err:
             raise RuntimeError(f"{self.name}: decode failed with CUDA error {err}")
 
@@ -103,7 +110,7 @@ def _us_of_launches(fn, reps: int) -> list[float]:
     return [a.elapsed_time(b) * 1e3 for a, b in zip(events, events[1:])]
 
 
-def time_variants(dirs, shapes, reps: int, rounds: int, ptxas: list[str]) -> int:
+def time_variants(dirs, shapes, reps: int, rounds: int, ptxas: list[str], dtype: str = "float32") -> int:
     import torch
 
     from . import _build, utils
@@ -123,12 +130,13 @@ def time_variants(dirs, shapes, reps: int, rounds: int, ptxas: list[str]) -> int
         for e in shape:
             n *= e
         gen = torch.Generator(device=dev).manual_seed(0)
-        x = torch.sin(torch.arange(n, device=dev, dtype=torch.float32) * 1e-4)
-        x += 1e-3 * torch.randn(n, device=dev, generator=gen)
-        words = x.view(torch.int32).reshape(shape)
+        float_type, word_type = (torch.float64, torch.int64) if dtype == "float64" else (torch.float32, torch.int32)
+        x = torch.sin(torch.arange(n, device=dev, dtype=float_type) * 1e-4)
+        x += 1e-3 * torch.randn(n, device=dev, generator=gen, dtype=float_type)
+        words = x.view(word_type).reshape(shape)
         del x
         num_hc = fmt.num_hypercubes(shape)
-        bound = fmt.compressed_bound_u32(shape, 32)
+        bound = fmt.compressed_bound_u32(shape, 8 * words.element_size())
         # scratch: the status words of a one-pass encoder or the lengths of a three-pass one
         scratch = torch.empty(num_hc + 1, dtype=torch.int64, device=dev)
         length = torch.zeros((), dtype=torch.int32, device=dev)
@@ -152,14 +160,15 @@ def time_variants(dirs, shapes, reps: int, rounds: int, ptxas: list[str]) -> int
                 for what, fn in (("encode", lambda v=v: v.encode(words, stream, scratch, length)),
                                  ("decode", lambda v=v: v.decode(first, out))):
                     times[v.name, what].append(_us_of_launches(fn, reps))
-        label = "x".join(map(str, shape))
+        label = "x".join(map(str, shape)) + (" fp64" if dtype == "float64" else "")
         for (name, what), per_round in times.items():
             every = [us for one_round in per_round[1:] for us in one_round]
             print(f"[time] {label} {what} {name}: {statistics.median(every):.2f} us a launch (median of {rounds} "
                   f"rounds of {reps} launches back to back; rounds "
                   f"{' '.join(f'{statistics.median(r):.2f}' for r in per_round[1:])}; least {min(every):.2f}, "
                   f"greatest {max(every):.2f}; the first launch of each round "
-                  f"{' '.join(f'{r[0]:.2f}' for r in per_round[1:])}); ratio {first.numel() / n:.4f} on {card}",
+                  f"{' '.join(f'{r[0]:.2f}' for r in per_round[1:])}); ratio {4 * first.numel() / (n * words.element_size()):.4f} "
+                  f"on {card}",
                   flush=True)
         del words, stream, out, first
         torch.cuda.empty_cache()
@@ -220,13 +229,14 @@ def main(argv=None) -> int:
     t.add_argument("--reps", type=int, default=20)
     t.add_argument("--rounds", type=int, default=3)
     t.add_argument("--ptxas", nargs="*", default=["blocks_nd"])
+    t.add_argument("--dtype", choices=["float32", "float64"], default="float32")
     s = sub.add_parser("sass")
     s.add_argument("dir_a", type=Path)
     s.add_argument("dir_b", type=Path)
     s.add_argument("--same", nargs="*", default=[])
     args = p.parse_args(argv)
     if args.command == "time":
-        return time_variants(args.dirs, args.shapes, args.reps, args.rounds, args.ptxas)
+        return time_variants(args.dirs, args.shapes, args.reps, args.rounds, args.ptxas, args.dtype)
     return compare_sass(args.dir_a, args.dir_b, args.same)
 
 

@@ -634,3 +634,54 @@ def test_cuda_fp64_kernels_match_plain(cuda, label):
     g_out = decode(torch.from_numpy(g_stream.view(np.int32)).to(cuda))
     torch.cuda.synchronize()
     assert torch.equal(g_out, w)
+
+
+def lookback64_cases():
+    """Inputs that stress the fp64 encoders' look-back: 1D at 2048 blocks + 17
+    with every length at its minimum (64) and at its maximum (4160), an odd
+    block count (the header's pad entry) with a border of 4095 words, and
+    bordered 2D and 3D grids with a border on every axis, the 3D one with
+    1085 border CTAs, more than the card holds at once."""
+    rng = np.random.default_rng(12)
+
+    def normal(shape):
+        d = rng.standard_normal(shape)
+        d.reshape(-1)[:200] = 0
+        return d
+
+    return {
+        "1d all zeros, 2048 blocks + 17": np.zeros(HC * 2048 + 17),
+        "1d random bits, 2048 blocks + 17": rng.integers(0, 2**64, HC * 2048 + 17, dtype=np.uint64).view(np.float64),
+        "1d 3 blocks + 4095": normal(HC * 3 + 4095),
+        "2d border on both axes (4100, 1030)": normal((4100, 1030)),
+        "3d border on every axis, 1085 border CTAs (20, 1030, 1030)": normal((20, 1030, 1030)),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(lookback64_cases()))
+def test_cuda_fp64_encode_lookback_is_golden(cuda, label):
+    """The one-pass fp64 encoders' stream is golden's byte for byte, on 20
+    calls in a row and on calls on two CUDA streams at once: a call's status
+    words are its own, and border CTAs that wait for the last block do not
+    keep it from starting."""
+    data = lookback64_cases()[label]
+    g_stream, g_length = golden.compress(data)
+    want = g_stream.tobytes()
+    w = torch.from_numpy(data.view(np.int64)).to(cuda)
+    encode = codec_cuda._encode_blocks_fp64 if data.ndim == 1 else codec_cuda._encode_interior_fp64
+    side = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    calls = [encode(w) for _ in range(20)]
+    for i in range(6):
+        with torch.cuda.stream(side[i % 2]):
+            calls.append(encode(w))
+    torch.cuda.synchronize()
+    for stream, length in calls:
+        assert int(length) == 2 * g_length
+        assert stream[: int(length)].cpu().numpy().tobytes() == want
+    header = g_stream.view(np.uint32)[:2048].astype(np.int64)
+    if label.startswith("1d all zeros"):
+        assert np.all(np.diff(header) == HC // 64)
+    if label.startswith("1d random bits"):
+        assert np.all(np.diff(header) == HC + HC // 64)
