@@ -71,6 +71,19 @@ line each, and any failure raises and exits nonzero:
    192^3 fp64 (scatters into grids of -1s), each with its ``[bound]`` line;
    P3 also against the one PyTorch call that computes the same function (a
    permuted view made contiguous, or copied into), which the port never calls.
+8. the block-parallel layer (``parallel``): ``compress_sharded_device`` and
+   ``decompress_sharded_device`` on four shards of the card (and across
+   every card where more than one answers, else a line says that one card
+   ran) for 2^28 + 17 fp32, fp64 512^3 and CESM 1800x3600, and on three
+   shards for 512x512x2048 fp32: the stream equal to ``compress_device``'s,
+   the round trip bit-exact, one encode and one decode launch a shard
+   (counted from 0 just before the sharded calls) and CUDA-event medians
+   beside the single-device calls; then ``parallel.multihost`` in two
+   processes on the card over gloo, (2*4096, 4096) fp32 and
+   (2*256, 256, 257) fp64: ``compress_to_file``'s file and
+   ``gather_stream``'s stream equal to ``compress_device``'s and
+   ``decompress_from_file``'s slabs the input's, each process with its own
+   timeout; then ``dryrun_multichip(4)``.
 
 Phase 3 also holds the five stage kernels of ``stages.py`` to their plain
 versions, exact: the block gather and scatter on every 2D/3D case of both
@@ -155,6 +168,16 @@ def big_cube(dev):
     gen = torch.Generator(device=dev).manual_seed(SEED)
     d = torch.sin(z[:, None, None]) * torch.cos(z[None, :, None]) * torch.sin(x[None, None, :])
     return d + 1e-3 * torch.randn((512, 512, 2048), device=dev, generator=gen)
+
+
+def line32(dev, n: int):
+    """bench_data's formula at n elements, made on the card with a
+    torch.Generator seeded with SEED."""
+    import torch
+
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    return (torch.sin(torch.arange(n, device=dev, dtype=torch.float32) * 1e-4)
+            + 1e-3 * torch.randn(n, device=dev, generator=gen))
 
 
 def bench_data64(n: int) -> np.ndarray:
@@ -469,6 +492,173 @@ def fp64_kernel_cases() -> dict[str, np.ndarray]:
         "3d nan/inf/-0/denormal (32,32,48)": special((32, 32, 48)),
         "3d all border (15,16,200)": normal((15, 16, 200)),
     }
+
+
+#: phase 8's two-process grids: (shape, dtype), each process's slab half of axis 0
+MULTIHOST_CASES = {"fp32 (2*4096, 4096)": ((2 * 4096, 4096), "float32"),
+                   "fp64 (2*256, 256, 257)": ((2 * 256, 256, 257), "float64")}
+MULTIHOST_TIMEOUT = 180  # seconds for each of the two processes
+
+#: one process of phase 8's gloo pair: argv = rank, port, scratch directory, repository root
+MULTIHOST_WORKER = """
+import sys, time
+rank, port, tmp = int(sys.argv[1]), sys.argv[2], sys.argv[3]
+sys.path.insert(0, sys.argv[4])
+import numpy as np, torch
+import torch.distributed as dist
+import chip_smoke
+from ndzip_tpu_torch import compress_device
+from ndzip_tpu_torch.parallel import multihost
+
+multihost.init(f"localhost:{port}", 2, rank)
+dev = torch.device("cuda", 0)
+for i, (label, (shape, dtype)) in enumerate(chip_smoke.MULTIHOST_CASES.items()):
+    full = chip_smoke.multihost_grid(label, dev)
+    rows = full.shape[0] // 2
+    slab = full[rank * rows: (rank + 1) * rows]
+    want = slab.cpu().numpy().tobytes()
+    path = f"{tmp}/{i}.ndz"
+    t0 = time.perf_counter()
+    total = multihost.compress_to_file(slab, path)
+    t1 = time.perf_counter()
+    got = multihost.decompress_from_file(path, shape, dtype)
+    t2 = time.perf_counter()
+    if got.tobytes() != want:
+        raise SystemExit(f"{label}, process {rank}: decompress_from_file's slab != the input's")
+    stream = multihost.gather_stream(multihost.compress_multihost(slab))
+    if rank == 0:
+        ref, length = compress_device(full)
+        ref = ref[: int(length)].cpu().numpy().tobytes()
+        if stream.tobytes() != ref:
+            raise SystemExit(f"{label}: gather_stream's stream != compress_device's")
+        with open(path, "rb") as f:
+            if f.read() != ref:
+                raise SystemExit(f"{label}: compress_to_file's file != compress_device's stream")
+    elif stream is not None:
+        raise SystemExit("gather_stream returned a stream on process 1")
+    print(f"[8 multihost] {label}, process {rank} of 2 on cuda:0 over gloo: compress_to_file {total} u32 words "
+          f"in {t1 - t0:.3f} s, decompress_from_file slab == input in {t2 - t1:.3f} s, gather_stream "
+          + ("== compress_device's stream == the file" if rank == 0 else "sent"), flush=True)
+dist.destroy_process_group()
+"""
+
+
+def multihost_grid(label: str, dev):
+    """Phase 8's two-process grid: sin(i * 1e-4) + 1e-3 * N(0, 1), made on
+    the card with a torch.Generator seeded with SEED."""
+    import torch
+
+    shape, dtype = MULTIHOST_CASES[label]
+    dtype = getattr(torch, dtype)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    i = torch.arange(math.prod(shape), dtype=dtype, device=dev).reshape(shape)
+    return torch.sin(i * 1e-4) + 1e-3 * torch.randn(shape, dtype=dtype, device=dev, generator=gen)
+
+
+def sharded_phase(dev, card: str):
+    """Phase 8: ``parallel.compress_sharded_device`` and
+    ``decompress_sharded_device`` on 4 shards of ``dev`` (and across every
+    card where more than one answers) for 2^28 + 17 fp32, fp64 512^3 and CESM
+    1800x3600, and on 3 shards for 512x512x2048 fp32: the stream equal to
+    ``compress_device``'s, the round trip bit-exact, one encode and one
+    decode launch a shard (counted from 0 just before the sharded calls),
+    and CUDA-event medians beside the single-device calls; then the
+    multihost layer in two processes on ``dev`` over gloo, and
+    ``dryrun_multichip(4)``."""
+    import socket
+
+    import torch
+
+    import ndzip_tpu_torch as nt
+    from ndzip_tpu_torch import codec_cuda, codec_torch, parallel, utils
+    from ndzip_tpu_torch.parallel import sharded
+
+    t_phase = time.perf_counter()
+    n_cards = torch.cuda.device_count()
+    meshes = [(f"4 shards on {dev}", [dev] * 4)]
+    if n_cards > 1:
+        meshes.append((f"{n_cards} shards on cuda:0..{n_cards - 1}", [torch.device("cuda", i) for i in range(n_cards)]))
+    else:
+        print("[8 sharded] one card answers: every shard ran on cuda:0; across cards not run", flush=True)
+    grids = [("2^28+17", lambda: line32(dev, 2**28 + 17), meshes),
+             ("fp64 512^3", lambda: cube64(dev), meshes),
+             ("CESM 1800x3600", lambda: torch.from_numpy(cesm_data()).to(dev), meshes),
+             ("512x512x2048", lambda: big_cube(dev), [(f"3 shards on {dev}", [dev] * 3)])]
+    for label, make, grid_meshes in grids:
+        x = make()
+        shape = tuple(x.shape)
+        suffix = ("64" if x.element_size() == 8 else "") + ("_nd" if x.dim() > 1 else "")
+        ref, length = nt.compress_device(x)
+        ref = ref[: int(length)]
+        for what, mesh in grid_meshes:
+            shards = sum(r0 < r1 for r0, r1 in sharded._shard_grid(shape, len(mesh)))
+            torch.cuda.synchronize()
+            for k in codec_cuda.LAUNCHES:
+                codec_cuda.LAUNCHES[k] = 0
+            s, ls = parallel.compress_sharded_device(x, mesh)
+            L = int(ls)
+            slabs = parallel.decompress_sharded_device(s[:L], shape, x.dtype, mesh)
+            y = torch.cat([t.to(dev) for t in slabs])
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in codec_cuda.LAUNCHES.items() if v}
+            if counts != {"encode" + suffix: shards, "decode" + suffix: shards}:
+                fail(f"[8 sharded] {label} on {what}: launches {counts}, not one encode{suffix} and one "
+                     f"decode{suffix} for each of {shards} shards")
+            if L != ref.numel() or not torch.equal(s[:L], ref):
+                fail(f"[8 sharded] {label} on {what}: stream != compress_device's")
+            if not torch.equal(codec_torch.as_words(y), codec_torch.as_words(x)):
+                fail(f"[8 sharded] {label} on {what}: round trip is not bit-exact")
+            del s, slabs, y
+            ms = {"compress_device": utils.device_time_ms(lambda: nt.compress_device(x), REPS),
+                  "compress_sharded_device": utils.device_time_ms(
+                      lambda: parallel.compress_sharded_device(x, mesh), REPS),
+                  "decompress_device": utils.device_time_ms(
+                      lambda: nt.decompress_device(ref, shape, x.dtype), REPS),
+                  "decompress_sharded_device": utils.device_time_ms(
+                      lambda: parallel.decompress_sharded_device(ref, shape, x.dtype, mesh), REPS)}
+            print(f"[8 sharded] {label} ({x.numel() * x.element_size() / 2**20:.1f} MiB) on {what}: stream == "
+                  f"compress_device's ({L} u32 words), round trip bit-exact, launches {counts}; CUDA-event "
+                  f"medians of {REPS} (host gaps and the sharded paths' one host sync in): "
+                  f"compress_device {ms['compress_device']:.4f} ms, compress_sharded_device "
+                  f"{ms['compress_sharded_device']:.4f} ms ({ms['compress_sharded_device'] / ms['compress_device']:.3f}x), "
+                  f"decompress_device {ms['decompress_device']:.4f} ms, decompress_sharded_device "
+                  f"{ms['decompress_sharded_device']:.4f} ms "
+                  f"({ms['decompress_sharded_device'] / ms['decompress_device']:.3f}x) on {card}", flush=True)
+        del x, ref
+        torch.cuda.empty_cache()
+
+    root = Path(__file__).resolve().parent
+    with socket.socket() as sock:  # a free port for the process group
+        sock.bind(("localhost", 0))
+        port = str(sock.getsockname()[1])
+    with tempfile.TemporaryDirectory() as tmp:
+        script = Path(tmp) / "worker.py"
+        script.write_text(MULTIHOST_WORKER)
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen([sys.executable, str(script), str(rank), port, tmp, str(root)], cwd=root,
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for rank in range(2)]
+        outs = []
+        try:
+            for p in procs:
+                outs.append(p.communicate(timeout=MULTIHOST_TIMEOUT)[0])
+        except subprocess.TimeoutExpired:
+            for p in procs:
+                p.kill()
+                p.communicate()
+            fail(f"[8 multihost] a process did not end within {MULTIHOST_TIMEOUT} s")
+        for rank, (p, out) in enumerate(zip(procs, outs)):
+            if p.returncode or out.count("[8 multihost]") != len(MULTIHOST_CASES):
+                fail(f"[8 multihost] process {rank} exited {p.returncode}:\n{out[-3000:]}")
+            print("\n".join(line for line in out.splitlines() if line.startswith("[8 multihost]")), flush=True)
+        print(f"[8 multihost] two processes on cuda:0 over gloo, both grids, in {time.perf_counter() - t0:.1f} s "
+              f"of wall time", flush=True)
+
+    t0 = time.perf_counter()
+    parallel.dryrun_multichip(4)
+    print(f"[8 dryrun] dryrun_multichip(4) on {n_cards} card(s): the four host cases and the device-resident "
+          f"case equal golden.compress, round trips bit-exact, in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[8 done] phase 8 took {time.perf_counter() - t_phase:.1f} s of wall time", flush=True)
 
 
 def main() -> int:
@@ -804,9 +994,7 @@ def main() -> int:
     # ---- 4. the fp32 1D path, through the public entry points
     n24, n28 = 2**24, 2**28 + 17
     x24 = torch.from_numpy(bench_data(n24)).to(dev)
-    gen = torch.Generator(device=dev).manual_seed(SEED)
-    x28 = (torch.sin(torch.arange(n28, device=dev, dtype=torch.float32) * 1e-4)
-           + 1e-3 * torch.randn(n28, device=dev, generator=gen))
+    x28 = line32(dev, n28)
     torch.cuda.synchronize()
 
     for k in codec_cuda.LAUNCHES:
@@ -1126,6 +1314,9 @@ def main() -> int:
     for key, what, kernel, plain, bytes_in, bytes_out, library in timed:
         hold(key, kernel(), plain(), f"{what} (phase 7)")
         record(key, what, kernel, median_ms(plain), bytes_in, bytes_out, library, traced=False)
+
+    # ---- 8. the block-parallel layer: sharded paths, two processes over gloo, the dry run
+    sharded_phase(dev, card)
 
     if "jax" in sys.modules:
         fail("JAX was imported")

@@ -10,14 +10,14 @@ Backends, all of which give the same stream byte for byte:
 * ``torch``: the plain PyTorch versions of ``codec_torch`` on the CPU;
 * ``golden``: the numpy reference of ``golden``;
 * ``cpu``/``native``: the C++ codec under ``native/``, through ``native``;
+* ``sharded``: block-parallel over every visible CUDA device
+  (``parallel.sharded``, one row slab a device); raises RuntimeError without
+  one, and grids with no whole block (all border) raise ValueError;
 * ``auto``: the backend named by the environment variable
   ``NDZIP_TORCH_BACKEND`` where that is set (an unknown name raises like an
   unknown ``backend``), else ``cuda`` where a GPU is present, else ``cpu``
   where the native codec builds, else ``golden``
-  (``ndzip_tpu/api.py:214-225``).
-
-The JAX package's ``sharded`` backend has no counterpart yet (multi-GPU is a
-later part of the port), and asking for it raises "unknown backend".
+  (``ndzip_tpu/api.py:214-225``); never ``sharded``.
 """
 
 from __future__ import annotations
@@ -196,6 +196,37 @@ class _CudaDecompressor(_TorchDecompressor):
         return codec_cuda.decompress_device(stream, shape, self.dtype)
 
 
+class _Sharded(_Codec):
+    """Block-parallel over every visible CUDA device (``parallel.make_mesh``),
+    as ``ndzip_tpu/api.py:228-246`` is over every visible accelerator; the
+    stream is byte for byte every single-device backend's."""
+
+    def __init__(self, dtype, dims):
+        # imported on use: parallel.sharded takes compress_device from the package, which imports this module
+        from .parallel import sharded
+
+        super().__init__(dtype, dims)
+        self.mesh = sharded.make_mesh()
+        if any(d.type == "cuda" for d in self.mesh):
+            _cuda_ready()
+
+
+class _ShardedCompressor(_Sharded, Compressor):
+    def compress(self, data):
+        from .parallel import sharded
+
+        data = np.ascontiguousarray(data)
+        self._check(data)
+        return sharded.compress_sharded(data, self.mesh)
+
+
+class _ShardedDecompressor(_Sharded, Decompressor):
+    def decompress(self, stream, shape):
+        from .parallel import sharded
+
+        return sharded.decompress_sharded(np.asarray(stream), tuple(shape), self.dtype, self.mesh)
+
+
 #: the environment variable that picks the backend of ``auto``
 BACKEND_ENV = "NDZIP_TORCH_BACKEND"
 
@@ -211,9 +242,9 @@ def _resolve_backend(backend: str) -> str:
 
 
 _COMPRESSORS = {"golden": _GoldenCompressor, "cpu": _NativeCompressor, "native": _NativeCompressor,
-                "torch": _TorchCompressor, "cuda": _CudaCompressor}
+                "torch": _TorchCompressor, "cuda": _CudaCompressor, "sharded": _ShardedCompressor}
 _DECOMPRESSORS = {"golden": _GoldenDecompressor, "cpu": _NativeDecompressor, "native": _NativeDecompressor,
-                  "torch": _TorchDecompressor, "cuda": _CudaDecompressor}
+                  "torch": _TorchDecompressor, "cuda": _CudaDecompressor, "sharded": _ShardedDecompressor}
 
 
 def _precompile(backend: str, dtype, requirements: CompressorRequirements):

@@ -31,8 +31,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-n", "--array-size", nargs="+", type=int, required=True,
                    metavar="N", help="array extents, first-major, 1-3 dims")
     p.add_argument("-t", "--data-type", choices=["float", "double"], default="float")
-    p.add_argument("-e", "--encoder", default="auto", choices=["auto", "cuda", "torch", "cpu", "golden"],
-                   help="codec backend (default: auto: cuda where a GPU is present, else cpu or golden)")
+    p.add_argument("-e", "--encoder", default="auto", choices=["auto", "cuda", "torch", "cpu", "golden", "sharded"],
+                   help="codec backend (default: auto: cuda where a GPU is present, else cpu or golden; "
+                        "'sharded' block-parallelizes over every visible GPU)")
     p.add_argument("-T", "--threads", type=int, default=0, help="CPU backend threads (0 = all cores)")
     p.add_argument("-i", "--input", default="-", help="input file (default stdin)")
     p.add_argument("-o", "--output", default="-", help="output file (default stdout)")

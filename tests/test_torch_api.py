@@ -34,7 +34,7 @@ def no_gpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
 
 
-@pytest.mark.parametrize("backend", ["sharded", "xla", "pallas"])
+@pytest.mark.parametrize("backend", ["multihost", "xla", "pallas"])
 def test_unknown_backend_raises(backend):
     with pytest.raises(ValueError, match="unknown backend"):
         api.make_compressor(np.float32, 1, backend=backend)

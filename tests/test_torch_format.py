@@ -236,6 +236,7 @@ def test_the_import_walk_finds_what_it_looks_for():
 
 def test_entry_points_load_nothing_of_the_jax_package():
     code = ("import ndzip_tpu_torch.api, ndzip_tpu_torch.cli, ndzip_tpu_torch.warm, ndzip_tpu_torch.ubench, sys\n"
+            "import ndzip_tpu_torch.parallel\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('ndzip_tpu', 'jax'))\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
