@@ -83,7 +83,19 @@ line each, and any failure raises and exits nonzero:
    (2*256, 256, 257) fp64: ``compress_to_file``'s file and
    ``gather_stream``'s stream equal to ``compress_device``'s and
    ``decompress_from_file``'s slabs the input's, each process with its own
-   timeout; then ``dryrun_multichip(4)``.
+   timeout; then ``dryrun_multichip(4)``;
+9. the benchmark harness (``benchmark``): ``make_synthetic``'s five datasets
+   at full size (BASELINE.json's set), each through ``benchmark_file`` with
+   ``ndzip-cuda``, ``ndzip-cpu`` and ``memcpy``; the rows, not the exit code,
+   decide: one ``ndzip-cuda`` row a dataset whose compressed bytes equal the
+   plain version's stream on the card and ``ndzip-cpu``'s, the dataset's
+   encode and decode kernel launched and no other codec kernel (counted from
+   0 just before it), every time above 0; then ``plot_benchmark``'s table,
+   the harness's device rep loop on ``sin1d.f32`` under
+   ``utils.profiler_trace`` with ``utils.trace`` spans around its compress
+   and decompress (both labels must be in the trace; its kernel records are
+   printed, not gated), and ``examples/torch/02_device_resident.py`` on the
+   card, which must print ``OK``.
 
 Phase 3 also holds the five stage kernels of ``stages.py`` to their plain
 versions, exact: the block gather and scatter on every 2D/3D case of both
@@ -659,6 +671,145 @@ def sharded_phase(dev, card: str):
     print(f"[8 dryrun] dryrun_multichip(4) on {n_cards} card(s): the four host cases and the device-resident "
           f"case equal golden.compress, round trips bit-exact, in {time.perf_counter() - t0:.1f} s", flush=True)
     print(f"[8 done] phase 8 took {time.perf_counter() - t_phase:.1f} s of wall time", flush=True)
+
+
+#: phase 9's datasets (``benchmark.make_synthetic``) and the two codec kernels each must launch,
+#: by their keys in ``codec_cuda.LAUNCHES``
+HARNESS_KERNELS = {"sin1d.f32": ("encode", "decode"), "grid2d.f32": ("encode_nd", "decode_nd"),
+                   "cube3d.f64": ("encode64_nd", "decode64_nd"), "walk1d.f64": ("encode64", "decode64"),
+                   "sparse3d.f32": ("encode_nd", "decode_nd")}
+HARNESS_ALGORITHMS = ("memcpy", "ndzip-cpu", "ndzip-cuda")
+HARNESS_REPS = (3, 5)  # min_reps, max_reps of phase 9's harness calls, at min_time 0
+EXAMPLE_TIMEOUT = 300  # seconds for examples/torch/02_device_resident.py
+
+
+def harness_phase(dev, card: str):
+    """Phase 9: the benchmark harness on the card. ``make_synthetic``'s five
+    datasets, each through ``benchmark_file`` with ``HARNESS_ALGORITHMS``;
+    ``benchmark_file`` reports a failed algorithm on a ``#`` line and goes
+    on, as the reference does, so the rows are checked: one ``ndzip-cuda``
+    row, its compressed bytes equal to the plain version's stream on the card
+    and to ``ndzip-cpu``'s, the dataset's two kernels of ``HARNESS_KERNELS``
+    launched and no other, every time above 0; and ``compress_device``'s
+    stream is held to the plain version's word for word. Then ``plot_benchmark``'s
+    table, a profiler trace of the harness's device rep loop on
+    ``sin1d.f32`` with ``utils.trace`` spans, and the device-resident
+    walkthrough on the card."""
+    import io
+    import statistics
+
+    import torch
+
+    from ndzip_tpu_torch import benchmark, codec_cuda, codec_torch, interop, plot_benchmark, utils
+
+    t_phase = time.perf_counter()
+    root = Path(__file__).resolve().parent
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        datasets = benchmark.make_synthetic(Path(tmp) / "data")
+        if [d.name for d in datasets] != list(HARNESS_KERNELS):
+            fail(f"[9 harness] make_synthetic gave {[d.name for d in datasets]}, not {list(HARNESS_KERNELS)}")
+        print(f"[9 harness] make_synthetic: {len(datasets)} datasets, "
+              f"{sum(d.path.stat().st_size for d in datasets) / 2**20:.1f} MiB, in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        algos = {k: v for k, v in benchmark.default_algorithms().items() if k in HARNESS_ALGORITHMS}
+        csv = benchmark.CSV_HEADER + "\n"
+        for ds in datasets:
+            torch.cuda.synchronize()
+            for k in codec_cuda.LAUNCHES:
+                codec_cuda.LAUNCHES[k] = 0
+            out = io.StringIO()
+            benchmark.benchmark_file(ds, algos, [1], 0.0, *HARNESS_REPS, out=out)
+            torch.cuda.synchronize()
+            counts = {k: v for k, v in codec_cuda.LAUNCHES.items() if v}
+            csv += out.getvalue()
+            rows = plot_benchmark.read_rows(io.StringIO(benchmark.CSV_HEADER + "\n" + out.getvalue()))
+            cuda_rows = [r for r in rows if r.algorithm == "ndzip-cuda"]
+            if len(cuda_rows) != 1:
+                fail(f"[9 harness] {ds.name}: {len(cuda_rows)} ndzip-cuda rows, not 1 (a failed run prints a '#' "
+                     f"line to stderr)")
+            row = cuda_rows[0]
+            # the kernels' stream, held word for word to the plain version's (these launches come after the
+            # counts are read and are not counted)
+            words = interop.words_from_numpy(ds.load(), dev)
+            plain_stream, plain_length = codec_torch.encode(words)
+            plain_length = int(plain_length)
+            stream, length = codec_cuda.compress_device(words)
+            same = int(length) == plain_length and torch.equal(stream[:plain_length], plain_stream[:plain_length])
+            del words, plain_stream, stream
+            if not same:
+                fail(f"[9 harness] {ds.name}: codec_cuda.compress_device's stream differs from the plain version's")
+            if row.compressed != plain_length * 4:
+                fail(f"[9 harness] {ds.name}: ndzip-cuda's {row.compressed} compressed bytes != the plain "
+                     f"version's {plain_length * 4}")
+            cpu_rows = [r for r in rows if r.algorithm == "ndzip-cpu"]
+            if any(r.compressed != row.compressed for r in cpu_rows):
+                fail(f"[9 harness] {ds.name}: ndzip-cpu's compressed bytes {[r.compressed for r in cpu_rows]} != "
+                     f"ndzip-cuda's {row.compressed}")
+            want = HARNESS_KERNELS[ds.name]
+            if set(counts) != set(want):
+                fail(f"[9 harness] {ds.name}: launches {counts}, not {' and '.join(want)} alone")
+            if any(t <= 0 for r in rows for t in r.comp_times + r.decomp_times):
+                fail(f"[9 harness] {ds.name}: a time of 0 in {out.getvalue()}")
+            comp_ms = statistics.median(row.comp_times) * 1e3
+            dec_ms = statistics.median(row.decomp_times) * 1e3
+            others = "; ".join(f"{r.algorithm} {statistics.median(r.comp_times) * 1e3:.4f} / "
+                               f"{statistics.median(r.decomp_times) * 1e3:.4f} ms" for r in rows if r is not row)
+            print(f"[9 harness] {ds.name} {ds.shape} {ds.dtype.name}: ndzip-cuda compress "
+                  f"{comp_ms:.4f} ms ({row.uncompressed / comp_ms / 1e6:.2f} GB/s), decompress {dec_ms:.4f} ms "
+                  f"({row.uncompressed / dec_ms / 1e6:.2f} GB/s), medians of {len(row.comp_times)} and "
+                  f"{len(row.decomp_times)} device times; ratio {row.ratio:.4f}, {row.compressed} bytes, the stream "
+                  f"== the plain version's" + (" == ndzip-cpu's" if cpu_rows else " (ndzip-cpu did not run)")
+                  + f"; launches {counts}; beside it (median compress / decompress, host clock): {others}; "
+                  f"on {card}", flush=True)
+            print("\n".join(f"[9 csv] {line}" for line in out.getvalue().strip().splitlines()), flush=True)
+        table = io.StringIO()
+        plot_benchmark.print_table(plot_benchmark.summarize(plot_benchmark.read_rows(io.StringIO(csv))), out=table)
+        print("\n".join(f"[9 table] {line}" for line in table.getvalue().splitlines()), flush=True)
+
+        sin = datasets[0]
+        x = interop.words_from_numpy(sin.load(), dev)
+        stream, length = codec_cuda.compress_device(x)
+        s = stream[: int(length)]
+        labels = ("ndzip-cuda compress sin1d.f32", "ndzip-cuda decompress sin1d.f32")
+        trace_dir = Path(tmp) / "trace"
+        with utils.profiler_trace(trace_dir):
+            with utils.trace(labels[0]):
+                comp = benchmark._device_rep_loop(lambda: codec_cuda.compress_device(x), 0.0, *HARNESS_REPS)
+            with utils.trace(labels[1]):
+                dec = benchmark._device_rep_loop(lambda: codec_cuda.decompress_device(s, sin.shape, x.dtype),
+                                                 0.0, *HARNESS_REPS)
+        files = list(trace_dir.glob("*.pt.trace.json"))
+        if len(files) != 1:
+            fail(f"[9 trace] profiler_trace wrote {len(files)} trace files, not 1")
+        events = json.loads(files[0].read_text()).get("traceEvents", [])
+        names = {e.get("name") for e in events}
+        if not all(label in names for label in labels):
+            fail(f"[9 trace] the trace lacks a span: {[label for label in labels if label not in names]}")
+        kernels = {}
+        for e in events:
+            if e.get("cat") == "kernel":
+                n, us = kernels.get(e["name"], (0, 0.0))
+                kernels[e["name"]] = (n + 1, us + e.get("dur", 0))
+        print(f"[9 trace] both spans in {files[0].name}; device reps {[round(t * 1e3, 4) for t in comp]} and "
+              f"{[round(t * 1e3, 4) for t in dec]} ms; kernel records (not gated; the profiler loses records late "
+              f"in a run): " + "; ".join(f"{k[:60]} x{n} {us:.1f} us" for k, (n, us) in sorted(kernels.items())),
+              flush=True)
+        del x, stream, s
+
+    example = root / "examples" / "torch" / "02_device_resident.py"
+    t0 = time.perf_counter()
+    try:
+        res = subprocess.run([sys.executable, str(example)], cwd=root, capture_output=True, text=True,
+                             timeout=EXAMPLE_TIMEOUT)
+    except subprocess.TimeoutExpired:
+        fail(f"[9 example] {example.name} did not end within {EXAMPLE_TIMEOUT} s")
+    lines = res.stdout.strip().splitlines()
+    if res.returncode or not lines or lines[-1] != "OK":
+        fail(f"[9 example] {example.name} exited {res.returncode}:\n{res.stdout[-2000:]}\n{res.stderr[-2000:]}")
+    print("\n".join(f"[9 example] {line}" for line in lines), flush=True)
+    print(f"[9 example] {example.name} on the card in {time.perf_counter() - t0:.1f} s", flush=True)
+    print(f"[9 done] phase 9 took {time.perf_counter() - t_phase:.1f} s of wall time", flush=True)
 
 
 def main() -> int:
@@ -1317,6 +1468,9 @@ def main() -> int:
 
     # ---- 8. the block-parallel layer: sharded paths, two processes over gloo, the dry run
     sharded_phase(dev, card)
+
+    # ---- 9. the benchmark harness: the synthetic datasets, the CSV's rows, a profiler trace, a walkthrough
+    harness_phase(dev, card)
 
     if "jax" in sys.modules:
         fail("JAX was imported")

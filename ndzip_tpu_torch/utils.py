@@ -1,19 +1,40 @@
-"""Timers and the card's name, shared by ``chip_smoke.py``, ``ubench`` and
-``api.Offloader``.
+"""Timers, the card's name and the observability utilities, shared by
+``chip_smoke.py``, ``ubench``, ``benchmark`` and ``api.Offloader``.
 
-The counterpart of ``ndzip_tpu/utils/__init__.py:device_time_ns``. On the
-card a call is timed with CUDA events around it on the current stream: the
-device time of the work it enqueues plus any gap the host leaves between its
-launches. With ``queued=True`` the work is queued behind a spin kernel
-first, so that the events hold the device's time alone (the reference's
-``kernel_duration``). A machine without a GPU has no device time to give, so
-``device_time_ms`` raises there; host work is timed with ``wall_time_ns``.
+The counterpart of ``ndzip_tpu/utils/__init__.py``. On the card a call is
+timed with CUDA events around it on the current stream: the device time of
+the work it enqueues plus any gap the host leaves between its launches.
+With ``queued=True`` the work is queued behind a spin kernel first, so that
+the events hold the device's time alone (the reference's
+``kernel_duration``). A machine without a GPU has no device time to give,
+so ``device_time_ms`` raises there; host work is timed with
+``wall_time_ns``.
+
+The reference gates its diagnostics behind ``NDZIP_VERBOSE``
+(common.hh:630-633) and profiles each kernel submission
+(sycl_bits.hh:38-55). Here:
+
+* ``verbose()``: the ``NDZIP_TORCH_VERBOSE`` gate, read once and cached;
+* ``log(...)``: a stderr logger, silent unless verbose;
+* ``trace(label)``: a ``torch.profiler.record_function`` span, which shows
+  in a profiler trace, and under verbose a ``[profile] <label> <ms>`` line
+  of host time;
+* ``profiler_trace(log_dir)``: a ``torch.profiler`` trace of a region, of
+  the CPU and, where a GPU answers, the card, written into ``log_dir`` as a
+  Chrome/TensorBoard trace.
+
+The JAX package's persistent compilation cache has no counterpart: the
+kernels are compiled ahead of time into one library (``_build``).
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+import os
 import statistics
 import subprocess
+import sys
 import time
 
 import torch
@@ -80,3 +101,47 @@ def card() -> str:
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout
     return out.strip().splitlines()[0].strip()
+
+
+#: the environment variable that turns on ``log`` and ``trace``'s lines
+VERBOSE_ENV = "NDZIP_TORCH_VERBOSE"
+
+
+@functools.lru_cache(maxsize=1)
+def verbose() -> bool:
+    """common.hh:630-633: whether ``NDZIP_TORCH_VERBOSE`` is set to other
+    than "", "0", "false" or "no"; read once and cached."""
+    return os.environ.get(VERBOSE_ENV, "") not in ("", "0", "false", "no")
+
+
+def log(*args):
+    """Print ``[ndzip-torch] ...`` to stderr under verbose."""
+    if verbose():
+        print("[ndzip-torch]", *args, file=sys.stderr)
+
+
+@contextlib.contextmanager
+def trace(label: str):
+    """A ``torch.profiler.record_function(label)`` span around the region,
+    and under verbose a ``[profile] <label> <ms>`` line of its host time
+    (the analog of submit_and_profile, sycl_bits.hh:46-55)."""
+    t0 = time.perf_counter()
+    with torch.profiler.record_function(label):
+        yield
+    if verbose():
+        ms = (time.perf_counter() - t0) * 1e3
+        print(f"[profile] {label} {ms:.3f} ms", file=sys.stderr)
+
+
+@contextlib.contextmanager
+def profiler_trace(log_dir: str):
+    """Profile the region with ``torch.profiler`` (the CPU, and the card
+    where ``torch.cuda.is_available()``) and write the trace into
+    ``log_dir`` as a Chrome/TensorBoard trace (``*.pt.trace.json``) when it
+    ends. Yields the ``torch.profiler.profile`` object."""
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities,
+                                on_trace_ready=torch.profiler.tensorboard_trace_handler(str(log_dir))) as prof:
+        yield prof

@@ -1,8 +1,8 @@
 """The port's own copies of the numpy-only modules (``format``, ``golden``,
 ``io``, ``native``) against the JAX package's, exact equality on the same
-inputs from a numpy seed; and the rule that the port and ``chip_smoke.py``
-import nothing of ``ndzip_tpu`` and no JAX, held by a walk of their syntax
-trees."""
+inputs from a numpy seed; and the rule that the port, its walkthroughs
+(``examples/torch/``) and ``chip_smoke.py`` import nothing of ``ndzip_tpu``
+and no JAX, held by a walk of their syntax trees."""
 
 import ast
 import subprocess
@@ -199,7 +199,8 @@ def test_native_builds_apart_from_the_reference_library(both_native):
 
 
 def port_sources():
-    return sorted((ROOT / "ndzip_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    return (sorted((ROOT / "ndzip_tpu_torch").rglob("*.py")) + sorted((ROOT / "examples" / "torch").glob("*.py"))
+            + [ROOT / "chip_smoke.py"])
 
 
 def forbidden_imports(tree):
@@ -236,7 +237,8 @@ def test_the_import_walk_finds_what_it_looks_for():
 
 def test_entry_points_load_nothing_of_the_jax_package():
     code = ("import ndzip_tpu_torch.api, ndzip_tpu_torch.cli, ndzip_tpu_torch.warm, ndzip_tpu_torch.ubench, sys\n"
-            "import ndzip_tpu_torch.parallel\n"
+            "import ndzip_tpu_torch.parallel, ndzip_tpu_torch.benchmark, ndzip_tpu_torch.competitors\n"
+            "import ndzip_tpu_torch.plot_benchmark\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('ndzip_tpu', 'jax'))\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)
