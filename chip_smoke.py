@@ -7,8 +7,9 @@ line each, and any failure raises and exits nonzero:
 1. device: the card's name, ``nvidia-smi``'s name and power limit, versions;
 2. build: the CUDA kernels from ``ndzip_tpu_torch/csrc`` with nvcc, one nvcc
    per source, all started together; what ``ptxas -v`` says of the 1D and the
-   2D/3D fp32 kernels and of the three fp64 encoders (registers, shared
-   memory, spills) and the CTAs an SM holds of each;
+   2D/3D fp32 kernels and of the three fp64 encoders and three fp64 decoders
+   (registers, shared memory, spills) and the CTAs an SM holds of each; a
+   spill in an fp64 decoder fails;
 3. each kernel against its plain PyTorch version on the card, exact: the 1D
    kernels on small fp32 1D cases (borders, zeros, incompressible bits,
    constants, one block, special floats; the decoder also on the stream
@@ -26,8 +27,12 @@ line each, and any failure raises and exits nonzero:
    four fp64 kernels on tests/test_pallas.py's fp64 shapes (an odd block
    count with the header's pad word, borders, 2D/3D) and on zeros, random
    64-bit words, a constant, special floats and one all-border grid; each
-   decode reads the plain stream with -1 written past its length, and each
-   encoder also runs 20 times in a row and six times on two CUDA streams;
+   decode reads the plain stream with -1 written past its length, and also
+   the stream as a view at u64 offsets 0-3 of its storage with nothing after
+   it, through ``decompress_device`` at odd u32 offsets (a realigned clone),
+   and cut at six even u32 counts (no fault; the plain version's blocks with
+   zeros for the missing words), and each encoder also runs 20 times in a
+   row and six times on two CUDA streams;
 4. the paths through the public entry points: ``compress_device`` then
    ``decompress_device(stream[:length], shape, dtype)``, fp32 1D at 2^24
    elements (bench.py's headline data) and 2^28 + 17, fp32 2D/3D at
@@ -114,6 +119,7 @@ from __future__ import annotations
 
 import json
 import math
+import re
 import subprocess
 import sys
 import tempfile
@@ -847,11 +853,18 @@ def main() -> int:
             ("5ndzip16decode_blocks_ndILi3E", "3D fp32 decode_blocks_nd", lib.ndzip_decode_fp32_nd_ctas_per_sm(3)),
             ("5ndzip15encode_blocks64E", "1D fp64 encode_blocks64", lib.ndzip_encode_fp64_ctas_per_sm()),
             ("5ndzip18encode_blocks64_ndILi2E", "2D fp64 encode_blocks64_nd", lib.ndzip_encode_fp64_nd_ctas_per_sm(2)),
-            ("5ndzip18encode_blocks64_ndILi3E", "3D fp64 encode_blocks64_nd", lib.ndzip_encode_fp64_nd_ctas_per_sm(3))):
+            ("5ndzip18encode_blocks64_ndILi3E", "3D fp64 encode_blocks64_nd", lib.ndzip_encode_fp64_nd_ctas_per_sm(3)),
+            ("5ndzip15decode_blocks64E", "1D fp64 decode_blocks64", lib.ndzip_decode_fp64_ctas_per_sm()),
+            ("5ndzip18decode_blocks64_ndILi2E", "2D fp64 decode_blocks64_nd", lib.ndzip_decode_fp64_nd_ctas_per_sm(2)),
+            ("5ndzip18decode_blocks64_ndILi3E", "3D fp64 decode_blocks64_nd", lib.ndzip_decode_fp64_nd_ctas_per_sm(3))):
         lines = _build.ptxas_lines(kernel)
         if len(lines) != 1 or ctas < 1:
             fail(f"ptxas reported the kernel {what} {len(lines)} times, or no CTA of it fits an SM ({ctas})")
         print(f"[2 build] ptxas -v, {what}: {lines[0].split(': ', 1)[1]}; {ctas} CTAs an SM", flush=True)
+        # the fp64 decoders' register bound is set for their shared memory: it must not make them spill
+        spills = [int(b) for b in re.findall(r"(\d+) bytes spill (?:stores|loads)", lines[0])]
+        if "decode_blocks64" in kernel and (len(spills) != 2 or any(spills)):
+            fail(f"{what} spills under its register bound, or ptxas said nothing of spills: {lines[0]}")
 
     err = dict.fromkeys(codec_cuda.LAUNCHES, 0)
 
@@ -1048,9 +1061,36 @@ def main() -> int:
         if e or differing:
             fail(f"fp64 decode kernel != plain or != input on {label!r} (max_abs_err {e}, "
                  f"{differing} words differ from the input)")
+        # the decoder on views of the stream: at u64 offsets 0-3 of its storage with nothing after
+        # it, through decompress_device at odd u32 offsets (a realigned clone), and truncated at even
+        # u32 counts (no fault; the missing words count as zeros)
+        decode = ((lambda s: codec_cuda._decode_blocks_fp64(s, shape[0])) if dims == 1
+                  else (lambda s: codec_cuda._decode_interior_fp64(s, shape)))
+        for offset in (0, 2, 4, 6, 1, 3):
+            storage = torch.full((offset + L,), -1, dtype=torch.int32, device=dev)
+            storage[offset:] = ref_stream[:L]
+            view = storage[offset:]
+            out = decode(view) if offset % 2 == 0 else nt.decompress_device(view, shape, torch.int64)
+            e = max_abs_err(out, w)
+            err[dec] = max(err[dec], e)
+            if e:
+                fail(f"fp64 decode kernel != input on {label!r}, stream[:length] at u32 offset {offset} of its "
+                     f"storage (max_abs_err {e})")
+        hw2_cuts = sorted({hw2, hw2 + 2, hw2 + 130, L // 4 * 2, L * 2 // 3 // 2 * 2, L - 2} - {L})
+        for cut in hw2_cuts:
+            zeros_past = torch.zeros(L + 2 * (HC + HC // 64), dtype=torch.int32, device=dev)
+            zeros_past[:cut] = ref_stream[:cut]
+            out = decode(ref_stream[:cut].clone())
+            e = max_abs_err(codec_torch.gather_blocks(out, shape),
+                            codec_torch.decode_blocks_ref(zeros_past, num_hc, dims, 64))
+            err[dec] = max(err[dec], e)
+            if e:
+                fail(f"fp64 decode kernel != plain on {label!r} truncated to {cut} of {L} u32 words "
+                     f"(max_abs_err {e})")
         print(f"[3 kernels fp64] {label}: blocks={num_hc} length={L} u32 words, {enc} == plain (26 more calls, "
               f"6 of them on two CUDA streams), "
-              f"{dec} == plain == input (0 differing words)", flush=True)
+              f"{dec} == plain == input (0 differing words; also at u64 offsets 0-3 without slack, through "
+              f"decompress_device at u32 offsets 1 and 3, and truncated at {hw2_cuts} u32 words)", flush=True)
 
     # ---- 3, the stage kernels against their plain versions, exact
     serr = dict.fromkeys(stages.LAUNCHES, 0)

@@ -50,9 +50,11 @@ SIGNATURES = {
     "ndzip_encode_fp64": [_P, _I64, _I64, _P, _P, _P, _P],
     "ndzip_decode_fp64": [_P, _I64, _I64, _I64, _P, _P],
     "ndzip_encode_fp64_ctas_per_sm": [],
+    "ndzip_decode_fp64_ctas_per_sm": [],
     "ndzip_encode_fp64_nd": [_P, _I64, _I64, _I64, _I64, _P, _P, _P, _P],
     "ndzip_decode_fp64_nd": [_P, _I64, _I64, _I64, _I64, _I64, _P, _P],
     "ndzip_encode_fp64_nd_ctas_per_sm": [_I64],
+    "ndzip_decode_fp64_nd_ctas_per_sm": [_I64],
     # stage kernels (stages.py). words, num_hc, out, cuda stream
     "ndzip_placement_floor": [_P, _I64, _P, _P],
     "ndzip_placement_compute": [_P, _I64, _P, _P],

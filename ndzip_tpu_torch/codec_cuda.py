@@ -235,8 +235,9 @@ def _encode_blocks_fp64(words: torch.Tensor):
 
 def _decode_blocks_fp64(stream: torch.Tensor, n: int) -> torch.Tensor:
     """Decode an int32 fp64 stream (header from word 0) into (n,) int64 words
-    on the card, n >= 4096. Reads only the words each block owns, so what
-    lies past the stream's length does not matter."""
+    on the card, n >= 4096. Reads only the words each block owns, so the
+    stream needs no padding, may start at any u64 word of its storage (a
+    slice), and what lies past its length does not matter."""
     num_hc = n // HC
     if num_hc == 0:
         raise ValueError(f"the decode kernel needs at least one {HC}-word block, got n={n}")
@@ -270,7 +271,8 @@ def _encode_interior_fp64(words: torch.Tensor):
 def _decode_interior_fp64(stream: torch.Tensor, shape) -> torch.Tensor:
     """Decode an int32 fp64 stream into int64 words of a 2D/3D ``shape``
     with at least one whole block on the card: blocks stored straight into
-    the grid, border placed from the stream."""
+    the grid, border placed from the stream. Takes the stream as
+    ``_decode_blocks_fp64`` does."""
     shape = tuple(shape)
     if len(shape) not in (2, 3):
         raise ValueError(f"the nd decode kernel takes 2D/3D shapes, got {shape}")

@@ -1,12 +1,12 @@
 // Pieces shared by the fp64 encode and decode kernels of the ndzip format
 // (1D in encode_fp64.cu/decode_fp64.cu, 2D/3D in encode_fp64_nd.cu/
 // decode_fp64_nd.cu), on native 64-bit words: the word transforms, the
-// warp-wide 64x64 bit transposes (the decoders' and the encoders' cheaper
-// one), the scans, the decoders' block head, the encoders' one-pass run with
-// its look-back, and the border copies. The block size, the
-// thread layout, the border map (Border) and the 32-bit warp scan come from
-// common.cuh, which the fp32 kernels share and which this file leaves as it
-// is.
+// warp-wide 64x64 bit transpose (TransposeLane64, four of common.cuh's 32-bit
+// ones), the scans, the border copies, the decoders' bulk copy of a block's
+// run and its expansion, and the encoders' one-pass run with its look-back.
+// The block size, the thread layout, the border map (Border), the 32-bit warp
+// scan and the mbarrier and bulk-copy primitives come from common.cuh, which
+// the fp32 kernels share and which this file leaves as it is.
 //
 // One CTA of kThreads threads works on one 4096-word block staged in shared
 // memory in the block's row-major order, so a chunk is 64 consecutive block
@@ -56,34 +56,6 @@ __device__ __forceinline__ u64 load_clamped64(const u64* stream, uint64_t size, 
     return i < size ? stream[i] : 0ull;
 }
 
-// 64x64 bit-matrix transpose across a warp. Lane r holds rows r (in a) and
-// r + 32 (in b) of a chunk; on return lane i holds transposed words i (in a)
-// and i + 32 (in b), in the format's MSB-first convention: out[i] bit (63-j)
-// == in[j] bit (63-i). The butterfly of ndzip_tpu/ops/bitops.py:
-// transpose_bits on _MASKS64: the round of shift 32 pairs rows r and r + 32,
-// which sit in one lane; the rounds of shift 16 .. 1 pair lanes r and r ^ j
-// as common.cuh's warp_transpose_bits does, on both words.
-__device__ __forceinline__ void warp_transpose_bits64(u64& a, u64& b, int lane) {
-    const u64 t = (a ^ (b >> 32)) & 0x00000000ffffffffull;
-    a ^= t;
-    b ^= t << 32;
-    const u64 masks[5] = {0x0000ffff0000ffffull, 0x00ff00ff00ff00ffull, 0x0f0f0f0f0f0f0f0full,
-                          0x3333333333333333ull, 0x5555555555555555ull};
-#pragma unroll
-    for (int s = 0; s < 5; ++s) {
-        const int j = 16 >> s;
-        const u64 m = masks[s];
-        const u64 pa = __shfl_xor_sync(kFull, a, j), pb = __shfl_xor_sync(kFull, b, j);
-        if (lane & j) {
-            a = (a & m) | ((pa << j) & ~m);
-            b = (b & m) | ((pb << j) & ~m);
-        } else {
-            a = (a & ~m) | ((pa >> j) & m);
-            b = (b & ~m) | ((pb >> j) & m);
-        }
-    }
-}
-
 __device__ __forceinline__ u64 warp_inclusive_scan64(u64 v, int lane) {
 #pragma unroll
     for (int d = 1; d < 32; d <<= 1) {
@@ -93,63 +65,44 @@ __device__ __forceinline__ u64 warp_inclusive_scan64(u64 v, int lane) {
     return v;
 }
 
-// Exclusive scan, in place, of the kChunks64 per-chunk counts of a block.
-// Called by all of warp 0.
-__device__ __forceinline__ void chunk_exclusive_scan64(uint32_t* counts, int lane) {
-    static_assert(kChunks64 == 2 * 32, "each lane scans two chunks");
-    const uint32_t c0 = counts[2 * lane], c1 = counts[2 * lane + 1];
-    const uint32_t excl = warp_inclusive_scan(c0 + c1, lane) - (c0 + c1);
-    counts[2 * lane] = excl;
-    counts[2 * lane + 1] = excl + c0;
-}
-
-struct DecodeShared64 {
-    u64 x[kPadded64];
-    u64 heads[kChunks64];
-    uint32_t offsets[kChunks64];  // per-chunk counts, then their exclusive scan
-    u64 partial[kThreads];        // the scans' per-thread or per-warp sums
-};
-
 // The body's first u64 word in a stream of num_hc blocks.
 __device__ __forceinline__ uint64_t header_words64(uint64_t num_hc) { return (num_hc + 1) / 2; }
 
-// The decoders' work before the inverse transform: read block b's 64 heads
-// from its start hw + (b ? header[b-1] : 0), expand each chunk's nonzero
-// words (rank of a word = popcount of the present bits below it, chunk
-// start = exclusive scan of the heads' popcounts) and transpose it back into
-// s.x. `size` counts the stream's u32 words and is even. Reads only the
-// words the block owns, each clamped to the stream's size. Ends with a
-// barrier.
-__device__ __forceinline__ void expand_chunks64(DecodeShared64& s, const uint32_t* __restrict__ stream,
-                                                uint64_t size, uint64_t num_hc, uint64_t b) {
-    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-    const u64* words = reinterpret_cast<const u64*>(stream);
-    const uint64_t size64 = size / 2;
-    const uint64_t start = header_words64(num_hc) + (b ? load_clamped(stream, size, b - 1) : 0u);
-    if (t < kChunks64) {
-        const u64 h = load_clamped64(words, size64, start + t);
-        s.heads[t] = h;
-        s.offsets[t] = __popcll(h);
-    }
-    __syncthreads();
-    if (warp == 0) chunk_exclusive_scan64(s.offsets, lane);
-    __syncthreads();
+// 64x64 bit-matrix transpose across a warp, on common.cuh's 13-instruction
+// TransposeLane, in the format's MSB-first convention: out[i] bit (63-j) ==
+// in[j] bit (63-i) (ndzip_tpu/ops/bitops.py:transpose_bits on _MASKS64). The
+// 64x64 transpose is a swap and four 32x32 transposes: with rows r < 32 in a
+// and r + 32 in b, the quadrant of rows 32.. and bits 63..32 (b's high
+// halves) goes to rows ..31 and bits 31..0 (a's low halves) and back, each
+// quadrant transposed in place. So the butterfly's round at distance 32 is a
+// swap of a's low half with b's high half, which costs no instruction, and
+// the rounds at 16 .. 1 are TransposeLane on each of the four 32-bit halves:
+// each 64-bit mask of those rounds is the 32-bit mask twice, and the bits a
+// shift moves across bit 32 land where the mask drops them. 52 instructions
+// for 64 words, where the butterfly on 64-bit words runs two 64-bit shuffles
+// and 64-bit masks in each of its five rounds. The transpose is its own
+// inverse: the encoders and the decoders run the same one.
+struct TransposeLane64 {
+    TransposeLane half;
 
-    const uint64_t body = start + kChunks64;
-#pragma unroll 4
-    for (int k = 0; k < kChunksPerWarp64; ++k) {
-        const int c = warp * kChunksPerWarp64 + k;
-        const u64 present = __brevll(s.heads[c]);  // bit i <=> word i is in the stream
-        const uint64_t from = body + s.offsets[c];
-        u64 w0 = (present >> lane) & 1ull
-            ? load_clamped64(words, size64, from + __popcll(present & below(lane))) : 0ull;
-        u64 w1 = (present >> (lane + 32)) & 1ull
-            ? load_clamped64(words, size64, from + __popcll(present & below(lane + 32))) : 0ull;
-        warp_transpose_bits64(w0, w1, lane);
-        s.x[pad64(64 * c + lane)] = w0;
-        s.x[pad64(64 * c + lane + 32)] = w1;
+    __device__ __forceinline__ explicit TransposeLane64(int lane) : half(lane) {}
+
+    // Lane r holds rows r (a) and r + 32 (b) of a chunk; on return lane i
+    // holds transposed words i (a) and i + 32 (b).
+    __device__ __forceinline__ void operator()(u64& a, u64& b) const {
+        const uint32_t a_hi = half(static_cast<uint32_t>(a >> 32)), a_lo = half(static_cast<uint32_t>(b >> 32));
+        const uint32_t b_hi = half(static_cast<uint32_t>(a)), b_lo = half(static_cast<uint32_t>(b));
+        a = (static_cast<u64>(a_hi) << 32) | a_lo;
+        b = (static_cast<u64>(b_hi) << 32) | b_lo;
     }
-    __syncthreads();
+};
+
+// A warp's 8 chunks lie in 544 consecutive slots of the padded block: chunk
+// k's words `lane` and `lane + 32` at chunk_slots64(x, warp, lane)[68 * k]
+// and [68 * k + 34] (the 16 words of a half-warp lie side by side).
+constexpr int kChunkStride64 = 68, kUpperHalf64 = 34;
+__device__ __forceinline__ u64* chunk_slots64(u64* x, int warp, int lane) {
+    return x + pad64(64 * kChunksPerWarp64 * warp + lane);
 }
 
 // A border CTA of the decoders: its share of the border from the stream
@@ -167,40 +120,6 @@ __device__ __forceinline__ void decode_border64(const uint32_t* __restrict__ str
 // One-pass encode on u64 words (encode_fp64.cu, encode_fp64_nd.cu): common.cuh's
 // tickets, status words and look-back as B1 and B3 use them, with the run
 // counted, compacted and stored in u64 words.
-
-// warp_transpose_bits64 with common.cuh's 13-instruction TransposeLane. The
-// 64x64 transpose is a swap and four 32x32 transposes: with rows r < 32 in a
-// and r + 32 in b, the quadrant of rows 32.. and bits 63..32 (b's high
-// halves) goes to rows ..31 and bits 31..0 (a's low halves) and back, each
-// quadrant transposed in place. So the round at distance 32 of
-// warp_transpose_bits64 is a swap of a's low half with b's high half, which
-// costs no instruction, and the rounds at 16 .. 1 are TransposeLane on each of
-// the four 32-bit halves: each 64-bit mask of those rounds is the 32-bit mask
-// twice, and the bits a shift moves across bit 32 land where the mask drops
-// them. 52 instructions for 64 words, where warp_transpose_bits64 (which the
-// decoders keep) runs two 64-bit shuffles and 64-bit masks in each round.
-struct TransposeLane64 {
-    TransposeLane half;
-
-    __device__ __forceinline__ explicit TransposeLane64(int lane) : half(lane) {}
-
-    // Lane r holds rows r (a) and r + 32 (b) of a chunk; on return lane i
-    // holds transposed words i (a) and i + 32 (b), as warp_transpose_bits64.
-    __device__ __forceinline__ void operator()(u64& a, u64& b) const {
-        const uint32_t a_hi = half(static_cast<uint32_t>(a >> 32)), a_lo = half(static_cast<uint32_t>(b >> 32));
-        const uint32_t b_hi = half(static_cast<uint32_t>(a)), b_lo = half(static_cast<uint32_t>(b));
-        a = (static_cast<u64>(a_hi) << 32) | a_lo;
-        b = (static_cast<u64>(b_hi) << 32) | b_lo;
-    }
-};
-
-// A warp's 8 chunks lie in 544 consecutive slots of the padded block: chunk
-// k's words `lane` and `lane + 32` at chunk_slots64(x, warp, lane)[68 * k]
-// and [68 * k + 34] (the 16 words of a half-warp lie side by side).
-constexpr int kChunkStride64 = 68, kUpperHalf64 = 34;
-__device__ __forceinline__ u64* chunk_slots64(u64* x, int warp, int lane) {
-    return x + pad64(64 * kChunksPerWarp64 * warp + lane);
-}
 
 struct EncodeRunShared64 {
     u64 x[kPadded64];             // the block, then each warp's run in its own 512 words
@@ -311,6 +230,108 @@ __device__ __forceinline__ void encode_border64(const u64* __restrict__ words, c
                                                 u64* __restrict__ dst) {
     for (uint64_t i = c * kHcSize + threadIdx.x; i < border_end(border, c); i += kThreads)
         dst[i] = words[border.offset(i)];
+}
+
+// ------------------------------------------------------------------------
+// Decode from a run in shared memory (decode_fp64.cu, decode_fp64_nd.cu), as
+// common.cuh's start_run_copy and expand_run do for fp32: block b's stream
+// words are one contiguous run of u64 words, [start, start + length) with
+// start = hw + header[b-1] and length = header[b] - header[b-1], so one bulk
+// copy (completing on an mbarrier) brings them in, and the heads, the scan of
+// their counts and the rank gather read shared memory.
+
+constexpr int kRunMax64 = kChunks64 + kHcSize;  // most u64 words a block's run can hold: 4160
+constexpr int kRunSlots64 = kRunMax64 + 2;      // a run and its skew of 0-1 words, 16-byte multiples
+
+// Where the copy put the run: word i of the run at words[skew + i] for i <
+// avail; past avail (what lies past the stream's size) it reads as 0.
+struct RunView64 {
+    uint32_t skew, avail;
+};
+
+// For one thread: start the copy of block b's run into `words` (16-byte
+// aligned, kRunSlots64 words), to complete on `bar` (one arrival). h0 and h1
+// are header[b-1] (0 for b = 0) and header[b], u32 entries counting u64
+// words; `size` counts the stream's u32 words and is even. A damaged header
+// cannot fault: the length is clamped to 64 .. 4160 (a header that decreases
+// gives a huge unsigned difference) and the run to the stream's size. The
+// bulk copy takes the 16-byte aligned window around the run: the stream is
+// 8-byte aligned, so the run's skew in it is 0 or 1 word. A window never
+// leaves [0, size): where rounding would, at the stream's last word, the copy
+// stops at the aligned boundary inside and the word beyond comes by a plain
+// load.
+__device__ __forceinline__ void start_run_copy64(const uint32_t* __restrict__ stream, uint64_t size,
+                                                 uint64_t num_hc, uint32_t h0, uint32_t h1, u64* words,
+                                                 RunView64& view, uint64_t* bar) {
+    const u64* src = reinterpret_cast<const u64*>(stream);
+    uint32_t length = h1 - h0;
+    length = length < kChunks64 ? kChunks64 : length > kRunMax64 ? kRunMax64 : length;
+    const int64_t n = static_cast<int64_t>(size / 2), start = static_cast<int64_t>(header_words64(num_hc)) + h0;
+    const int64_t avail = start < n ? (n - start < length ? n - start : length) : 0;
+    const int64_t base = (reinterpret_cast<uintptr_t>(stream) >> 3) & 1;  // the stream's own skew in memory
+    const int64_t skew = (start + base) & 1, end = start + avail;
+    view.skew = static_cast<uint32_t>(skew);
+    view.avail = static_cast<uint32_t>(avail);
+    // the aligned window [lo, hi) in stream indices, cut to whole 16 bytes inside [0, size); lo >= 0,
+    // since a run starts past the header, at start >= hw >= 1
+    int64_t lo = start - skew, hi = end + ((end + base) & 1);
+    if (hi > n) hi -= 2;
+    u64* run = words + skew - start;  // run[w]: the slot of stream word w
+    uint32_t bytes = 0;
+    if (hi > lo) {
+        bytes = static_cast<uint32_t>(hi - lo) * 8;
+        for (int64_t w = start; w < lo; ++w) run[w] = src[w];
+        for (int64_t w = hi; w < end; ++w) run[w] = src[w];
+    } else {
+        for (int64_t w = start; w < end; ++w) run[w] = src[w];  // a run inside one window: one word
+    }
+    mbarrier_arrive_expect(bar, bytes);
+    if (bytes) bulk_copy_to_shared(run + lo, src + lo, bytes, bar);
+}
+
+// The decoders' work before the inverse transform, from the run that the
+// copy (completed) left in x: expand each chunk's nonzero words (rank of a
+// word = popcount of the present bits below it) and transpose it back into x,
+// now the padded block. The heads are read where they lie, at the run's start.
+// A warp finds the start of its 8 chunks itself, from a scan of all 64
+// heads' popcounts, two a lane: no shared scan, no barrier before the
+// expansion. Words past view.avail read as 0. The heads are read whether or
+// not they lie below avail (the 64 slots lie inside the buffer): a run cut at
+// or before its 64th word has all its other words past avail, and one cut
+// after it has all its heads. The run and the block share x: each warp
+// gathers its 8 chunks, 16 words a lane, into registers, and writes x only
+// after a barrier, when every warp has read the run. Ends with a barrier.
+static_assert(kRunSlots64 <= kPadded64, "the run fits the block's buffer");
+__device__ __forceinline__ void expand_run64(u64* x, const RunView64 view) {
+    const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+    const u64* run = x + view.skew;
+    const uint32_t avail = view.avail;
+    const uint32_t two = __popcll(run[2 * lane]) + __popcll(run[2 * lane + 1]);  // chunks 2 lane, 2 lane + 1
+    const uint32_t before = warp_inclusive_scan(two, lane) - two;
+    uint32_t at = kChunks64 + __shfl_sync(kFull, before, kChunksPerWarp64 / 2 * warp);
+
+    const u64 below_a = below(lane), below_c = below(lane + 32);
+    u64 a[kChunksPerWarp64], c[kChunksPerWarp64];  // chunk k's words lane and lane + 32
+#pragma unroll
+    for (int k = 0; k < kChunksPerWarp64; ++k) {
+        const uint32_t chunk = kChunksPerWarp64 * warp + k;
+        const u64 present = __brevll(run[chunk]);  // bit i <=> word i is in the stream
+        const uint32_t i = at + __popcll(present & below_a), j = at + __popcll(present & below_c);
+        a[k] = ((present >> lane) & 1ull) && i < avail ? run[i] : 0ull;
+        c[k] = ((present >> (lane + 32)) & 1ull) && j < avail ? run[j] : 0ull;
+        at += __popcll(present);
+    }
+    __syncthreads();  // every warp has read the run, which the block overwrites
+
+    const TransposeLane64 transpose(lane);
+    u64* mine = chunk_slots64(x, warp, lane);
+#pragma unroll
+    for (int k = 0; k < kChunksPerWarp64; ++k) {
+        transpose(a[k], c[k]);
+        mine[kChunkStride64 * k] = a[k];
+        mine[kChunkStride64 * k + kUpperHalf64] = c[k];
+    }
+    __syncthreads();
 }
 
 }  // namespace ndzip

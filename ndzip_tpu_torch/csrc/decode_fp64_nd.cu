@@ -7,79 +7,111 @@
 //
 // The TPU kernel decodes G blocks a step into multi-block tiles of (lo, hi)
 // planes and writes a minor-axis-padded array. Here, as in the fp32 decoder
-// (decode_fp32_nd.cu), one CTA decodes one block (common64.cuh's
-// expand_chunks64: only the words the block owns, each read clamped to the
-// stream's size), runs the inverse transform in shared memory, and stores the
-// block of u64 words straight into the grid of the exact shape, row by row.
-// The inverse transform is complement-negative, then wrapping inclusive
-// prefix sums along each axis in the reversed forward order (2D: 0, 1; 3D: 0,
-// 2, 1), each a pass in which a thread scans 16 words of one line
-// (grid_nd.cuh's segment; a 2D line's four segments add the sums of the ones
-// before them), then rotate-right-1 on the store. CTAs past the blocks copy
-// the border, 4096 elements each, from the stream to their places in
-// format.border_slices order.
+// (decode_fp32_nd.cu), a block's words are taken as what they are, one
+// contiguous run of the stream known from two header words, and the block
+// goes straight into the grid of the exact shape:
+//   * one CTA decodes one block, in the header's order (row-major over the
+//     block grid). Its thread 0 starts the bulk copy of the run into shared
+//     memory (common64.cuh's start_run_copy64, the 1D decoder's) and splits
+//     the block's index over the block grid, once, in 32-bit arithmetic;
+//   * each warp gathers its 8 chunks from the run and transposes them
+//     (expand_run64) into the same buffer, now the padded block that the
+//     passes below walk;
+//   * the inverse transform is complement-negative, then wrapping inclusive
+//     prefix sums along each axis, then rotate-right-1. The sums along
+//     different axes commute, so they need not run in the format's reversed
+//     order: those along the columns (2D) or along z and then y (3D) are each
+//     a pass over shared memory in which a thread scans 16 words of one line
+//     (grid_nd.cuh's segment; a 2D column's four segments add the sums of the
+//     ones before them), and those along the rows are taken in registers on
+//     the store, where the 32 or 8 lanes of a row scan their sums
+//     (grid_nd64.cuh's store_block64_rowsum). Rows that do not start 16-byte
+//     aligned are stored one word a lane, after one more pass for their sums;
+//   * a damaged or truncated stream cannot fault: the run is clamped to
+//     64 .. 4160 words and to the stream's size, and what lies past it reads
+//     as 0;
+//   * CTAs past the blocks copy the border, 4096 elements each, from the
+//     stream to their places in format.border_slices order, each read clamped.
 //
 // Bound: bytes, as the 1D decoder: 8 B x ratio of stream read and 8 B
-// written per element, in rows of 512 B (2D) or 128 B (3D). Its shared
-// memory (37.6 KB a CTA) lets 5 CTAs share an SM. Element and stream offsets
-// are 64-bit.
+// written per element, in rows of 512 B (2D) or 128 B (3D). The run and the
+// block share one buffer; with the 2D passes' partial sums 35-37 KB of shared
+// memory a CTA. As in the 1D decoder the registers, 64, set four CTAs an SM:
+// bound to five the kernel spilled 12-36 bytes a thread and to six 160-216,
+// and a run buffer beside the block (70 KB, three CTAs an SM) took 4-9% more
+// time (at 512^3 elements on an NVIDIA H100 80GB HBM3, 700.00 W; PERF.md
+// §6). Element and stream offsets are 64-bit.
 
 #include "grid_nd64.cuh"
 
 namespace ndzip {
 
+template <int Dims>
+struct DecodeNdShared64 {
+    alignas(16) u64 x[kPadded64];           // the block's run as the copy brings it in, then the block
+    u64 partial[Dims == 2 ? kThreads : 1];  // the 2D scans' per-thread sums
+    uint64_t full;                          // mbarrier: the run has arrived
+    uint64_t origin;                        // of the CTA's block in the grid
+    RunView64 run;
+};
+
 // Wrapping inclusive prefix sums along Axis in shared memory, after
 // complement-negative on the first pass. Ends with a barrier.
 template <int Dims, int Axis, bool kFirst>
-__device__ __forceinline__ void prefix_sum64(DecodeShared64& s) {
+__device__ __forceinline__ void prefix_sum64(u64* x, u64* partial) {
     const int t = threadIdx.x;
     const Segment g = segment<Dims, Axis>(t);
     u64 v[kWordsPerThread];
     u64 sum = 0;
 #pragma unroll
     for (int k = 0; k < kWordsPerThread; ++k) {
-        const u64 u = s.x[pad64(g.start + k * g.step)];
+        const u64 u = x[pad64(g.start + k * g.step)];
         sum += kFirst ? complement_negative(u) : u;
         v[k] = sum;
     }
     if constexpr (Dims == 2) {  // add the sums of the segments before this one on its line
-        s.partial[t] = sum;
+        partial[t] = sum;
         __syncthreads();
         u64 carry = 0;
-        for (int j = 1; j <= g.s; ++j) carry += s.partial[t - j * g.tstride];
+        for (int j = 1; j <= g.s; ++j) carry += partial[t - j * g.tstride];
 #pragma unroll
         for (int k = 0; k < kWordsPerThread; ++k) v[k] += carry;
     }
 #pragma unroll
-    for (int k = 0; k < kWordsPerThread; ++k) s.x[pad64(g.start + k * g.step)] = v[k];
+    for (int k = 0; k < kWordsPerThread; ++k) x[pad64(g.start + k * g.step)] = v[k];
     __syncthreads();
 }
 
-// At most 48 registers, so that 5 CTAs share an SM as its shared memory
-// allows: uncapped, ptxas takes 60-62 and 4 fit, and the 3D decoder ran 10%
-// slower on an H100 (PERF.md, PR 3). The encoders are left uncapped: the same
-// cap spilled and made them 3-14% slower.
 template <int Dims>
-__global__ void __launch_bounds__(kThreads, 5)
+__global__ void __launch_bounds__(kThreads, 4)
 decode_blocks64_nd(const uint32_t* __restrict__ stream, uint64_t size, Blocks<Dims> geo, Border border,
                    bool vec, uint64_t num_hc, u64* __restrict__ out) {
-    const uint64_t b = blockIdx.x;
+    const int t = threadIdx.x;
+    const uint32_t b = blockIdx.x;
     if (b >= num_hc) {  // a border CTA
         decode_border64(stream, size, num_hc, border, b - num_hc, out);
         return;
     }
 
-    __shared__ DecodeShared64 s;
-    expand_chunks64(s, stream, size, num_hc, b);
-    if constexpr (Dims == 2) {
-        prefix_sum64<2, 0, true>(s);
-        prefix_sum64<2, 1, false>(s);
-    } else {
-        prefix_sum64<3, 0, true>(s);
-        prefix_sum64<3, 2, false>(s);
-        prefix_sum64<3, 1, false>(s);
+    __shared__ DecodeNdShared64<Dims> s;
+    if (t == 0) {  // the header lies inside the stream
+        mbarrier_init(&s.full, 1);
+        mbarrier_init_fence();
+        start_run_copy64(stream, size, num_hc, b ? stream[b - 1] : 0u, stream[b], s.x, s.run, &s.full);
+        s.origin = geo.origin32(b);
     }
-    store_block64(out + geo.origin(b), geo, vec, s.x);
+    __syncthreads();
+    mbarrier_wait(&s.full, 0);
+    expand_run64(s.x, s.run);
+
+    prefix_sum64<Dims, 0, true>(s.x, s.partial);
+    if constexpr (Dims == 3) prefix_sum64<3, 1, false>(s.x, s.partial);
+    if (vec) {  // the sums along the rows in registers, on the way out
+        store_block64_rowsum(out + s.origin, geo, s.x);
+    } else {
+        prefix_sum64<Dims, Dims - 1, false>(s.x, s.partial);
+        store_block64(out + s.origin, geo, s.x);
+    }
 }
 
 template <int Dims>
@@ -89,6 +121,14 @@ int decode64_nd(const uint32_t* stream, uint64_t size, uint64_t e0, uint64_t e1,
     decode_blocks64_nd<Dims><<<static_cast<unsigned>(g.num_hc + border_ctas(g.border.count)), kThreads, 0,
                                s>>>(stream, size, g.blocks, g.border, rows_aligned64(out, e2), g.num_hc, out);
     return cudaGetLastError();
+}
+
+template <int Dims>
+int decode64_nd_ctas_per_sm() {
+    int ctas = 0;
+    const cudaError_t err =
+        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, decode_blocks64_nd<Dims>, kThreads, 0);
+    return err == cudaSuccess ? ctas : -static_cast<int>(err);
 }
 
 }  // namespace ndzip
@@ -106,4 +146,12 @@ extern "C" int ndzip_decode_fp64_nd(const void* stream, int64_t size, int64_t di
     if (dims == 2) return decode64_nd<2>(in, size, e0, e1, e2, grid, s);
     if (dims == 3) return decode64_nd<3>(in, size, e0, e1, e2, grid, s);
     return cudaErrorInvalidValue;
+}
+
+// CTAs of decode_blocks64_nd for `dims` (2 or 3) that one SM holds at a time,
+// or minus the CUDA error.
+extern "C" int ndzip_decode_fp64_nd_ctas_per_sm(int64_t dims) {
+    if (dims == 2) return ndzip::decode64_nd_ctas_per_sm<2>();
+    if (dims == 3) return ndzip::decode64_nd_ctas_per_sm<3>();
+    return -static_cast<int>(cudaErrorInvalidValue);
 }

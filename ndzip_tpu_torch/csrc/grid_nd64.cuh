@@ -1,12 +1,12 @@
 // Geometry of the fp64 2D/3D kernels (encode_fp64_nd.cu, decode_fp64_nd.cu):
 // the strided copy of a block of u64 words between the grid and shared
-// memory, the encoder's with the differences along the rows, and the
-// encoder's L2 prefetch. Where a block lies (Blocks, GridNd) and the lines
-// the transform walks (segment) count words, not bytes, and come from
-// grid_nd.cuh as the fp32 kernels use them; with common64.cuh's pad64 every
-// segment pattern is free of bank conflicts, since each half-warp of 8-byte
-// accesses runs on 16 consecutive words aligned to 16 or on the scans'
-// 16-word runs.
+// memory, the encoder's with the differences along the rows and the
+// decoder's with the sums along the rows, and the encoder's L2 prefetch.
+// Where a block lies (Blocks, GridNd) and the lines the transform walks
+// (segment) count words, not bytes, and come from grid_nd.cuh as the fp32
+// kernels use them; with common64.cuh's pad64 every segment pattern is free
+// of bank conflicts, since each half-warp of 8-byte accesses runs on 16
+// consecutive words aligned to 16 or on the scans' 16-word runs.
 //
 // A block row is kSide words: 64 x 8 B = 512 B in 2D, 16 x 8 B = 128 B in 3D.
 #pragma once
@@ -65,19 +65,36 @@ __device__ __forceinline__ void prefetch_block64(const u64* block, const Blocks<
     asm volatile("prefetch.global.L2 [%0];" ::"l"(block + geo.row(t / kPieces) + 16 * (t % kPieces)));
 }
 
-// Store x into the block whose first word is `block`, rotating each word
-// right by one.
+// Store x into the block whose first word is `block`, one word a lane,
+// rotating each word right by one (rows that do not start 16-byte aligned).
 template <int Dims>
-__device__ __forceinline__ void store_block64(u64* __restrict__ block, const Blocks<Dims>& geo, bool vec,
-                                              const u64* x) {
-    if (vec) {
-        walk_block<2>([&](int i) {
-            *reinterpret_cast<ulonglong2*>(block + geo.word(i)) =
-                make_ulonglong2(rotr1(x[pad64(i)]), rotr1(x[pad64(i + 1)]));
-        });
-    } else {
-        walk_block<1>([&](int i) { block[geo.word(i)] = rotr1(x[pad64(i)]); });
-    }
+__device__ __forceinline__ void store_block64(u64* __restrict__ block, const Blocks<Dims>& geo, const u64* x) {
+    walk_block<1>([&](int i) { block[geo.word(i)] = rotr1(x[pad64(i)]); });
+}
+
+// Store the wrapping inclusive prefix sums of x along the rows into the block
+// whose first word is `block`, each rotated right by one, with 16-byte stores
+// of two words (rows start 16-byte aligned): the inverse transform's sums
+// along the rows, which commute with those along the other axes, done in
+// registers on the way out, as grid_nd.cuh's store_block_rowsum does for
+// fp32. A lane sums its two words, and the 32 lanes of a 2D row (512 B) or
+// the 8 of a 3D row (128 B) scan their sums.
+template <int Dims>
+__device__ __forceinline__ void store_block64_rowsum(u64* __restrict__ block, const Blocks<Dims>& geo,
+                                                     const u64* x) {
+    constexpr int kLanes = Blocks<Dims>::kSide / 2;  // lanes a row
+    const int at = threadIdx.x & (kLanes - 1);
+    walk_block<2>([&](int i) {
+        const u64 a = x[pad64(i)], c = a + x[pad64(i + 1)];
+        u64 sum = c;
+#pragma unroll
+        for (int off = 1; off < kLanes; off <<= 1) {
+            const u64 up = __shfl_up_sync(kFull, sum, off);
+            if (at >= off) sum += up;
+        }
+        const u64 before = sum - c;
+        *reinterpret_cast<ulonglong2*>(block + geo.word(i)) = make_ulonglong2(rotr1(a + before), rotr1(c + before));
+    });
 }
 
 }  // namespace ndzip

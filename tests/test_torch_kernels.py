@@ -15,7 +15,9 @@ gives back the input from golden's stream; the 1D encoder also on inputs
 that stress its look-back, many times and on two CUDA streams, and the 1D
 decoder on stream views at any word offset, without slack and truncated; the
 2D/3D pair on the same, and on bordered grids whose border needs more CTAs
-than the card holds at once or whose rows are not 16-byte aligned.
+than the card holds at once or whose rows are not 16-byte aligned; the fp64
+decoders on stream views at u64 offsets 0-3 without slack, at odd u32
+offsets through decompress_device, and truncated at even u32 counts.
 Run those on the card
 with ``NDZIP_TPU_TESTS_TPU=1 python -m pytest tests/test_torch_kernels.py -m cuda``
 (the variable keeps tests/conftest.py from setting up JAX, which the port's
@@ -685,3 +687,80 @@ def test_cuda_fp64_encode_lookback_is_golden(cuda, label):
         assert np.all(np.diff(header) == HC // 64)
     if label.startswith("1d random bits"):
         assert np.all(np.diff(header) == HC + HC // 64)
+
+
+#: the fp64 cases of fp64_kernel_cases with at least one whole block
+FP64_LABELS = [label for label in fp64_kernel_cases() if "all border" not in label]
+
+
+def fp64_decoder(shape):
+    """B7 for 1D shapes, B8 for 2D/3D ones."""
+    if len(shape) == 1:
+        return lambda s: codec_cuda._decode_blocks_fp64(s, shape[0])
+    return lambda s: codec_cuda._decode_interior_fp64(s, shape)
+
+
+def fp64_truncations(num_hc: int, L: int) -> list[int]:
+    """Where an fp64 stream of L u32 words is cut: even u32 counts from the
+    end of the header (its pad word in) to two words short of the end."""
+    hw2 = 2 * fmt.header_words(num_hc, 64)
+    return sorted({hw2, hw2 + 2, hw2 + 130, L // 4 * 2, L * 2 // 3 // 2 * 2, L - 2} - {L})
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [0, 1, 2, 3])
+@pytest.mark.parametrize("label", FP64_LABELS)
+def test_cuda_fp64_decode_of_a_stream_view(cuda, label, offset):
+    """golden's fp64 stream, exactly its length with nothing after it, as a
+    view at u64 word offsets 0-3 of its storage (so the run's 16-byte skew
+    takes both values): B7/B8 give back the input, also through
+    decompress_device."""
+    data = fp64_kernel_cases()[label]
+    g_stream, _ = golden.compress(data)
+    g32 = torch.from_numpy(np.ascontiguousarray(g_stream).view(np.int32)).to(cuda)
+    storage = torch.full((2 * offset + g32.numel(),), -1, dtype=torch.int32, device=cuda)
+    storage[2 * offset:] = g32
+    out = fp64_decoder(data.shape)(storage[2 * offset:])
+    torch.cuda.synchronize()
+    assert out.cpu().numpy().tobytes() == data.tobytes()
+    whole = codec_cuda.decompress_device(storage[2 * offset:], data.shape, torch.float64)
+    assert whole.cpu().numpy().tobytes() == data.tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", FP64_LABELS)
+def test_cuda_fp64_decode_at_an_odd_u32_offset(cuda, label):
+    """An fp64 stream at an odd u32 offset of its storage is not 8-byte
+    aligned: the kernels refuse it, and decompress_device decodes a
+    realigned clone."""
+    data = fp64_kernel_cases()[label]
+    g_stream, _ = golden.compress(data)
+    g32 = torch.from_numpy(np.ascontiguousarray(g_stream).view(np.int32)).to(cuda)
+    for offset in (1, 3):
+        storage = torch.full((offset + g32.numel(),), -1, dtype=torch.int32, device=cuda)
+        storage[offset:] = g32
+        with pytest.raises(ValueError, match="8-byte aligned"):
+            fp64_decoder(data.shape)(storage[offset:])
+        out = codec_cuda.decompress_device(storage[offset:], data.shape, torch.float64)
+        torch.cuda.synchronize()
+        assert out.cpu().numpy().tobytes() == data.tobytes()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", FP64_LABELS)
+def test_cuda_fp64_decode_of_a_truncated_stream(cuda, label):
+    """An fp64 stream cut short at even u32 counts does not fault, and its
+    blocks decode to what the plain version gives on the cut stream with
+    zeros after it."""
+    data = fp64_kernel_cases()[label]
+    shape, dims = data.shape, data.ndim
+    g_stream, _ = golden.compress(data)
+    full = torch.from_numpy(np.ascontiguousarray(g_stream).view(np.int32)).to(cuda)
+    num_hc, L = fmt.num_hypercubes(shape), full.numel()
+    for cut in fp64_truncations(num_hc, L):
+        zeros_past = torch.zeros(L + 2 * (HC + HC // 64), dtype=torch.int32, device=cuda)
+        zeros_past[:cut] = full[:cut]
+        out = fp64_decoder(shape)(full[:cut].clone())
+        torch.cuda.synchronize()
+        assert torch.equal(codec_torch.gather_blocks(out, shape),
+                           codec_torch.decode_blocks_ref(zeros_past, num_hc, dims, 64)), cut
