@@ -1,7 +1,7 @@
 # Convenience targets (the analog of the reference's top-level CMake
 # workflow; the Python package itself needs no build step).
 
-.PHONY: all native test test-tpu bench ubench lint clean
+.PHONY: all native test test-tpu bench ubench lint clean lint-torch chip-smoke test-cuda bench-torch
 
 all: native
 
@@ -35,6 +35,23 @@ bench: native
 
 ubench:
 	python -m ndzip_tpu.ubench
+
+# The PyTorch/CUDA port (ndzip_tpu_torch).  chip-smoke, test-cuda and
+# bench-torch need an NVIDIA GPU; run chip-smoke first, it builds the kernels.
+lint-torch:
+	python -m compileall -q ndzip_tpu_torch
+	python -m pyflakes ndzip_tpu_torch
+
+chip-smoke:
+	python3 chip_smoke.py
+
+test-cuda:
+	NDZIP_TPU_TESTS_TPU=1 python -m pytest tests/test_torch_kernels.py tests/test_torch_stages.py \
+		tests/test_torch_api.py tests/test_torch_fuzz.py tests/test_torch_sharded.py \
+		tests/test_torch_benchmark.py tests/test_torch_bench.py -m cuda -q
+
+bench-torch:
+	python -m ndzip_tpu_torch.bench
 
 clean:
 	rm -f native/libndzip_cpu.so

@@ -100,7 +100,18 @@ line each, and any failure raises and exits nonzero:
    ``utils.profiler_trace`` with ``utils.trace`` spans around its compress
    and decompress (both labels must be in the trace; its kernel records are
    printed, not gated), and ``examples/torch/02_device_resident.py`` on the
-   card, which must print ``OK``.
+   card, which must print ``OK``;
+10. the headline bench (``ndzip_tpu_torch.bench``): ``python -m
+   ndzip_tpu_torch.bench`` once as a user runs it (its last line, printed
+   first, must parse with ``backend`` cuda, phase 1's card and no error), then
+   its runner in process on the four default cells, the kernels' launches
+   counted from 0 just before each cell (each cell launches its own encode
+   and decode kernel and no other): every GB/s above 0, no cell's error, the
+   ratios bench.py's (``BENCH_RATIOS``), and the headline's decompress median
+   within 0.9 times B2's profiled device time at 2^24 and 1.25 times phase
+   5's 2^24 decompress event median; then ``ndzip_tpu_torch.compress`` and
+   ``decompress`` with no backend on the 2^24 cell, which must launch one
+   encode and one decode kernel and give golden's stream and the input's bits.
 
 Phase 3 also holds the five stage kernels of ``stages.py`` to their plain
 versions, exact: the block gather and scatter on every 2D/3D case of both
@@ -818,6 +829,103 @@ def harness_phase(dev, card: str):
     print(f"[9 done] phase 9 took {time.perf_counter() - t_phase:.1f} s of wall time", flush=True)
 
 
+#: phase 10: bench.py's ratios of its default cells, and the encode and decode kernel each cell launches
+BENCH_RATIOS = {"fp32_1d": 0.6214, "fp64": 0.768, "cesm": 0.6715, "cube3d": 0.7475}
+BENCH_KERNELS = {"fp32_1d": ("encode", "decode"), "fp64": ("encode64", "decode64"),
+                 "cesm": ("encode_nd", "decode_nd"), "cube3d": ("encode_nd", "decode_nd")}
+BENCH_TIMEOUT = 300  # seconds for python -m ndzip_tpu_torch.bench
+HEADLINE_BAND = (0.9, 1.25)  # of B2's profiled device time and of phase 5's event median, at 2^24
+
+
+def bench_phase(dev, card: str, b2_us: float, phase5_ms: float):
+    """Phase 10: the headline bench as a user runs it, its runner in process
+    with the launches counted per cell, and the package's compress/decompress
+    with no backend. ``b2_us`` is B2's profiled device time at 2^24 and
+    ``phase5_ms`` phase 5's 2^24 decompress event median."""
+    import torch
+
+    import ndzip_tpu_torch as nt
+    from ndzip_tpu_torch import bench, codec_cuda, golden
+
+    t_phase = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "ndzip_tpu_torch.bench"], cwd=Path(__file__).resolve().parent,
+                          capture_output=True, text=True, timeout=BENCH_TIMEOUT)
+    out = proc.stdout.strip().splitlines()
+    print(out[-1] if out else "(python -m ndzip_tpu_torch.bench printed nothing)", flush=True)
+    try:
+        line = json.loads(out[-1])
+    except (IndexError, ValueError):
+        fail(f"python -m ndzip_tpu_torch.bench: no JSON last line (exit {proc.returncode}):\n{proc.stderr}")
+    extra = line.get("extra", {})
+    errors = sorted(k for k in line | extra if k.endswith("error"))
+    if (proc.returncode or errors or extra.get("backend") != "cuda" or extra.get("device") != card
+            or not (line.get("value") or 0) > 0):
+        fail(f"python -m ndzip_tpu_torch.bench: exit {proc.returncode}, errors {errors}, backend "
+             f"{extra.get('backend')!r}, device {extra.get('device')!r} (phase 1: {card!r}), value "
+             f"{line.get('value')}:\n{proc.stderr}")
+    wrong = {k: extra.get(f"{k}_ratio") for k, r in BENCH_RATIOS.items() if extra.get(f"{k}_ratio") != r}
+    if wrong:
+        fail(f"python -m ndzip_tpu_torch.bench: ratios {wrong} are not bench.py's {BENCH_RATIOS}")
+    print(f"[10 bench] python -m ndzip_tpu_torch.bench: exit 0, backend cuda, device == phase 1's card, no error, "
+          f"the ratios bench.py's; headline {line['value']} GB/s, vs copy_ {line['vs_baseline']}", flush=True)
+
+    counts = []
+
+    def measure(data, gate):
+        torch.cuda.synchronize()
+        for k in codec_cuda.LAUNCHES:
+            codec_cuda.LAUNCHES[k] = 0
+        row = bench.measure_cell(data, gate, dev)
+        torch.cuda.synchronize()
+        counts.append(dict(codec_cuda.LAUNCHES))
+        return row
+
+    rows, extra = bench.run_cells(bench.CELLS, measure)
+    errors = {k: v for k, v in extra.items() if k.endswith("_error")}
+    if errors:
+        fail(f"the bench's runner: {errors}")
+    for (key, _, gate), launched in zip(bench.CELLS, counts):
+        row, (enc, dec) = rows[key], BENCH_KERNELS[key]
+        others = {k: n for k, n in launched.items() if n and k not in (enc, dec)}
+        if not (launched[enc] and launched[dec]) or others:
+            fail(f"the bench's {key} cell did not launch {enc} and {dec} alone: {launched}")
+        if not all(g > 0 for g in row["gbps"].values()) or extra[f"{key}_ratio"] != BENCH_RATIOS[key]:
+            fail(f"the bench's {key} cell: GB/s {row['gbps']}, ratio {extra[f'{key}_ratio']} "
+                 f"(bench.py's {BENCH_RATIOS[key]})")
+        ms, gbps = row["ms"], row["gbps"]
+        print(f"[10 bench] {key}: stream == {gate}, round trip bit-exact, ratio {extra[f'{key}_ratio']}; "
+              f"launches {enc} {launched[enc]}, {dec} {launched[dec]}; medians of {bench.REPS} (events, queued): "
+              f"compress {ms['compress']:.4f} ms = {gbps['compress']:.1f} GB/s, decompress "
+              f"{ms['decompress']:.4f} ms = {gbps['decompress']:.1f} GB/s, copy_ {ms['copy']:.4f} ms = "
+              f"{gbps['copy']:.1f} GB/s on {card}", flush=True)
+    head_ms = rows[bench.HEADLINE]["ms"]["decompress"]
+    lo, hi = HEADLINE_BAND[0] * b2_us * 1e-3, HEADLINE_BAND[1] * phase5_ms
+    if not lo <= head_ms <= hi:
+        fail(f"the headline's decompress median {head_ms:.4f} ms is not within {lo:.4f}-{hi:.4f} ms "
+             f"({HEADLINE_BAND[0]} x B2's {b2_us:.2f} us, {HEADLINE_BAND[1]} x phase 5's {phase5_ms:.4f} ms)")
+    print(f"[10 bench] headline decompress {head_ms:.4f} ms within {lo:.4f}-{hi:.4f} ms ({HEADLINE_BAND[0]} x "
+          f"B2's profiled {b2_us:.2f} us, {HEADLINE_BAND[1]} x phase 5's event median {phase5_ms:.4f} ms)",
+          flush=True)
+
+    data = bench.fp32_1d(np.random.default_rng(0))
+    ref_stream, ref_words = golden.compress(data)
+    torch.cuda.synchronize()
+    for k in codec_cuda.LAUNCHES:
+        codec_cuda.LAUNCHES[k] = 0
+    stream, words = nt.compress(data)
+    back = nt.decompress(stream, data.shape, np.float32)
+    launched = {k: n for k, n in codec_cuda.LAUNCHES.items() if n}
+    if launched != {"encode": 1, "decode": 1}:
+        fail(f"ndzip_tpu_torch.compress/decompress with no backend did not take the CUDA path: {launched}")
+    if words != ref_words or stream.tobytes() != ref_stream.tobytes():
+        fail("ndzip_tpu_torch.compress with no backend: the stream != golden's")
+    if back.tobytes() != data.tobytes():
+        fail("ndzip_tpu_torch.decompress with no backend: the round trip is not bit-exact")
+    print(f"[10 api] ndzip_tpu_torch.compress/decompress, no backend, 2^24: launches {launched}, stream == "
+          f"golden's ({words} words), round trip bit-exact", flush=True)
+    print(f"[10 done] phase 10 took {time.perf_counter() - t_phase:.1f} s of wall time", flush=True)
+
+
 def main() -> int:
     import torch
 
@@ -1238,7 +1346,8 @@ def main() -> int:
                   f"{device_us(fn)[1]} on {card}", flush=True)
         return rows, sl
 
-    kernel_rows, event_ms = {}, {}  # event_ms: phase 5's rows of the cells phase 6 runs again
+    kernel_rows, event_ms = {}, {}  # event_ms: phase 5's rows of the cells phases 6 and 10 read again
+    profiled_us = {}  # (key, size): the least of a kernel's flushed and back-to-back device times
 
     flush = l2_flush(dev)
 
@@ -1264,6 +1373,7 @@ def main() -> int:
         share_text = f"{share:.1%}" if share <= 1 else (
             "not given: the device time is under the bound (the L2 still holds part of the output when "
             "the kernel ends), so the bytes at the memory's rate are no lower bound at this size")
+        profiled_us[key, what] = min(us, warm_us)
         kernel_rows.setdefault(key, {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
                                      "library_ms": library_ms})
         print(f"[bound] {key} at {what}: {bytes_in / 1e6:.1f} + {bytes_out / 1e6:.1f} MB in + out, bound "
@@ -1511,6 +1621,9 @@ def main() -> int:
 
     # ---- 9. the benchmark harness: the synthetic datasets, the CSV's rows, a profiler trace, a walkthrough
     harness_phase(dev, card)
+
+    # ---- 10. the headline bench, as a user runs it and in process; the package's API with no backend
+    bench_phase(dev, card, profiled_us["decode", "2^24"], event_ms["2^24"]["decompress"])
 
     if "jax" in sys.modules:
         fail("JAX was imported")

@@ -13,11 +13,19 @@ Streams are int32 tensors and lengths count u32 words for both profiles, so
 ``stream[:length]`` is the stream; ``compress`` returns the length in the
 profile's words, as ``ndzip_tpu.compress`` does.
 
+``compress``/``decompress`` take numpy arrays and a backend by name, as
+``ndzip_tpu.compress``/``decompress`` do, through ``api.make_offloader``.
+The default backend is ``cuda``: without a GPU they raise RuntimeError, and
+nothing falls back. ``backend="auto"`` takes the card where one answers, else
+the CPU codecs (see ``api``). ``device=`` instead runs the call on that
+device's path, as above.
+
 The objects of ``api`` (``make_compressor``, ``make_decompressor``,
 ``make_offloader``, ``Offloader``, ``CompressorRequirements``) take numpy
 arrays and a backend by name. ``python -m ndzip_tpu_torch.cli`` is the
 command-line compressor, ``.warm`` builds and loads the kernels for planned
-shapes, and ``.ubench`` times the codec stage by stage.
+shapes, ``.ubench`` times the codec stage by stage, and ``.bench`` prints the
+headline throughputs on the card as one JSON line.
 """
 
 from __future__ import annotations
@@ -25,9 +33,11 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from . import codec_cuda, codec_torch, interop
+from . import api, codec_cuda, codec_torch, interop
+from . import format  # noqa: F401
 from .api import (CompressorRequirements, Offloader, make_compressor,  # noqa: F401
                   make_decompressor, make_offloader)
+from .format import Profile, compressed_bound_words, num_hypercubes, profile_for  # noqa: F401
 
 __version__ = "0.1.0"
 
@@ -57,17 +67,36 @@ def decompress_device(stream: torch.Tensor, shape, dtype=torch.float32) -> torch
     return codec_torch.decode(stream, shape, out_dtype.itemsize * 8).view(out_dtype)
 
 
-def compress(data: np.ndarray, device="cuda") -> tuple[np.ndarray, int]:
-    """Compress a float32/float64 numpy array of 1-3 dims on ``device``;
-    returns (uint32 stream, length in the profile's words) as
-    ``ndzip_tpu.compress`` does."""
-    words = interop.words_from_numpy(data, device)
+def compress(data: np.ndarray, backend="cuda", device=None, **kwargs) -> tuple[np.ndarray, int]:
+    """Compress a float32/float64 numpy array of 1-3 dims; returns (uint32
+    stream, length in the profile's words) as ``ndzip_tpu.compress`` does.
+
+    ``backend`` and ``kwargs`` go to ``api.make_offloader``. With ``device``
+    (and no other backend) the call runs on that device instead: the kernels
+    on a CUDA device, the plain versions on the CPU."""
+    if device is None:
+        return make_offloader(backend, data.dtype, data.ndim, **kwargs).compress(data)
+    words = interop.words_from_numpy(data, _device(device, backend, kwargs))
     stream, length = compress_device(words)
     length = int(length)
     return interop.stream_to_numpy(stream, length), length // (words.element_size() // 4)
 
 
-def decompress(stream: np.ndarray, shape, dtype=np.float32, device="cuda") -> np.ndarray:
-    """Decompress a uint32 numpy stream on ``device`` into a numpy array."""
-    out = decompress_device(interop.stream_from_numpy(stream, device), shape, dtype)
+def decompress(stream: np.ndarray, shape, dtype=np.float32, backend="cuda", device=None, **kwargs) -> np.ndarray:
+    """Decompress a uint32 numpy stream into a numpy array of ``shape`` and
+    ``dtype``, with ``backend`` or on ``device`` as ``compress``."""
+    if device is None:
+        return make_offloader(backend, dtype, len(shape), **kwargs).decompress(stream, shape)
+    out = decompress_device(interop.stream_from_numpy(stream, _device(device, backend, kwargs)), shape, dtype)
     return interop.words_to_numpy(out, dtype).reshape(tuple(shape))
+
+
+def _device(device, backend, kwargs) -> torch.device:
+    """``device`` for a call that names one, which then takes no other backend
+    and no options; a CUDA device needs a GPU."""
+    if backend != "cuda" or kwargs:
+        raise ValueError(f"pass device= or backend=/options, not both (device={device!r}, backend={backend!r})")
+    device = torch.device(device)
+    if device.type == "cuda":
+        api._require_gpu()
+    return device

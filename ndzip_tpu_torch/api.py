@@ -285,6 +285,22 @@ def make_decompressor(dtype, dims, backend="auto", threads=1) -> Decompressor:
     return cls(dtype, dims)
 
 
+def compress_device(x: torch.Tensor):
+    """Compress a tensor where it lies, without leaving its device (the
+    reference's cuda_compressor, cuda.hh:10-41); ``ndzip_tpu_torch.compress_device``."""
+    from . import compress_device as f  # the package imports this module
+
+    return f(x)
+
+
+def decompress_device(stream: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
+    """Decompress a stream where it lies (cuda.hh:28-41);
+    ``ndzip_tpu_torch.decompress_device``."""
+    from . import decompress_device as f
+
+    return f(stream, shape, dtype)
+
+
 class Offloader:
     """Host arrays in and out, with the duration of each call
     (offload.hh:8-71).

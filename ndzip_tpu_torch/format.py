@@ -35,6 +35,7 @@ reference's ``extent`` order) and ``word_bits`` in {32, 64}.
 from __future__ import annotations
 
 import math
+from collections.abc import Iterator
 from dataclasses import dataclass
 
 MAX_DIMENSIONALITY = 3
@@ -118,6 +119,26 @@ def grid_shape(shape: tuple[int, ...]) -> tuple[int, ...]:
     """Number of whole blocks along each axis."""
     side = SIDE_LENGTH[len(shape)]
     return tuple(s // side for s in shape)
+
+
+def hypercube_origins(shape: tuple[int, ...]) -> Iterator[tuple[int, ...]]:
+    """Yield block origin coordinates in canonical (row-major block-grid)
+    order — the order of for_each_hypercube (common.hh:414-433)."""
+    side = SIDE_LENGTH[len(shape)]
+    grid = grid_shape(shape)
+
+    def rec(prefix: tuple[int, ...], d: int):
+        if d == len(shape):
+            yield prefix
+            return
+        for i in range(grid[d]):
+            yield from rec(prefix + (i * side,), d + 1)
+
+    yield from rec((), 0)
+
+
+def header_u32_entries(num_hc: int) -> int:
+    return num_hc
 
 
 def header_words(num_hc: int, word_bits: int) -> int:

@@ -288,3 +288,7 @@ def decompress(stream: np.ndarray, shape: tuple[int, ...], dtype) -> np.ndarray:
         bpos += cnt * (wb // 32)
 
     return flat.reshape(shape).view(dtype)
+
+
+def compressed_length_words(stream_u32_len: int, wb: int) -> int:
+    return stream_u32_len * 4 // (wb // 8)

@@ -31,14 +31,23 @@ SHAPES = [
 ]
 
 SHAPE_FUNCTIONS = ["num_hypercubes", "grid_shape", "border_element_count", "border_slices"]
+SHAPE_ITER_FUNCTIONS = ["hypercube_origins"]
 SHAPE_BITS_FUNCTIONS = ["compressed_bound_u32", "compressed_bound_words"]
+COUNT_FUNCTIONS = ["header_u32_entries"]
 COUNT_BITS_FUNCTIONS = ["header_words", "header_u32_words"]
+NUM_HCS = (0, 1, 2, 3, 8, 4095, 4096, 65536, 65537)
 
 
 @pytest.mark.parametrize("name", SHAPE_FUNCTIONS)
 def test_shape_functions_equal_the_reference(name):
     for shape in SHAPES:
         assert getattr(fmt, name)(shape) == getattr(ref_format, name)(shape), shape
+
+
+@pytest.mark.parametrize("name", SHAPE_ITER_FUNCTIONS)
+def test_shape_iterators_equal_the_reference(name):
+    for shape in SHAPES:
+        assert list(getattr(fmt, name)(shape)) == list(getattr(ref_format, name)(shape)), shape
 
 
 @pytest.mark.parametrize("word_bits", [32, 64])
@@ -51,8 +60,21 @@ def test_bounds_equal_the_reference(name, word_bits):
 @pytest.mark.parametrize("word_bits", [32, 64])
 @pytest.mark.parametrize("name", COUNT_BITS_FUNCTIONS)
 def test_header_sizes_equal_the_reference(name, word_bits):
-    for num_hc in (0, 1, 2, 3, 8, 4095, 4096, 65536, 65537):
+    for num_hc in NUM_HCS:
         assert getattr(fmt, name)(num_hc, word_bits) == getattr(ref_format, name)(num_hc, word_bits)
+
+
+@pytest.mark.parametrize("name", COUNT_FUNCTIONS)
+def test_counts_equal_the_reference(name):
+    for num_hc in NUM_HCS:
+        assert getattr(fmt, name)(num_hc) == getattr(ref_format, name)(num_hc)
+
+
+@pytest.mark.parametrize("word_bits", [32, 64])
+def test_golden_length_words_equals_the_reference(word_bits):
+    for shape in SHAPES:
+        for u32 in (fmt.compressed_bound_u32(shape, word_bits), fmt.header_u32_words(fmt.num_hypercubes(shape), 64)):
+            assert golden.compressed_length_words(u32, word_bits) == ref_golden.compressed_length_words(u32, word_bits)
 
 
 @pytest.mark.parametrize("name", ["SIDE_LENGTH", "HC_SIZE", "FORWARD_AXIS_ORDER", "MAX_DIMENSIONALITY"])
@@ -238,7 +260,7 @@ def test_the_import_walk_finds_what_it_looks_for():
 def test_entry_points_load_nothing_of_the_jax_package():
     code = ("import ndzip_tpu_torch.api, ndzip_tpu_torch.cli, ndzip_tpu_torch.warm, ndzip_tpu_torch.ubench, sys\n"
             "import ndzip_tpu_torch.parallel, ndzip_tpu_torch.benchmark, ndzip_tpu_torch.competitors\n"
-            "import ndzip_tpu_torch.plot_benchmark\n"
+            "import ndzip_tpu_torch.plot_benchmark, ndzip_tpu_torch.bench\n"
             "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('ndzip_tpu', 'jax'))\n"
             "assert not bad, bad\n")
     proc = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True, timeout=120)

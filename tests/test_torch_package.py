@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 
 import ndzip_tpu_torch as nt  # noqa: E402
 from ndzip_tpu import golden  # noqa: E402
-from ndzip_tpu_torch import _build, codec_cuda, codec_torch, interop, stages  # noqa: E402
+from ndzip_tpu_torch import _build, api, codec_cuda, codec_torch, interop, stages  # noqa: E402
 from ndzip_tpu_torch import format as port_format  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -22,7 +22,8 @@ MODULES = ["ndzip_tpu_torch", "ndzip_tpu_torch._build", "ndzip_tpu_torch.codec_c
            "ndzip_tpu_torch.codec_torch", "ndzip_tpu_torch.interop", "ndzip_tpu_torch.ops.bitops",
            "ndzip_tpu_torch.api", "ndzip_tpu_torch.cli", "ndzip_tpu_torch.stages",
            "ndzip_tpu_torch.ubench", "ndzip_tpu_torch.utils", "ndzip_tpu_torch.warm",
-           "ndzip_tpu_torch.format", "ndzip_tpu_torch.golden", "ndzip_tpu_torch.io", "ndzip_tpu_torch.native"]
+           "ndzip_tpu_torch.format", "ndzip_tpu_torch.golden", "ndzip_tpu_torch.io", "ndzip_tpu_torch.native",
+           "ndzip_tpu_torch.bench"]
 
 
 def test_import_leaves_jax_out():
@@ -132,6 +133,82 @@ def test_bad_inputs_raise_value_error():
         nt.decompress_device(torch.zeros(10, dtype=torch.int32), (2, 2, 2, 2), np.float64)
     with pytest.raises(ValueError):  # an fp64 stream of an odd number of u32 words
         nt.decompress_device(torch.zeros(4097 * 2 + 1, dtype=torch.int32), (4096,), np.float64)
+
+
+HOST_CASES = [(np.float32, (4096 * 2 + 5,)), (np.float32, (130, 70)), (np.float64, (4096 + 3,)),
+              (np.float64, (17, 16, 35))]
+HOST_IDS = [f"{np.dtype(d).name}-{len(s)}d" for d, s in HOST_CASES]
+
+
+def host_data(dtype, shape):
+    return np.random.default_rng(len(shape)).standard_normal(shape).astype(dtype)
+
+
+@pytest.mark.parametrize("dtype,shape", HOST_CASES, ids=HOST_IDS)
+def test_auto_backend_equals_golden_and_round_trips(monkeypatch, dtype, shape):
+    """``backend="auto"`` as ``ndzip_tpu.compress``'s: the card where one
+    answers, else the CPU codecs; byte for byte golden's stream and length."""
+    monkeypatch.delenv(api.BACKEND_ENV, raising=False)
+    data = host_data(dtype, shape)
+    stream, words = nt.compress(data, backend="auto")
+    ref_stream, ref_words = golden.compress(data)
+    assert words == ref_words and stream.tobytes() == ref_stream.tobytes()
+    out = nt.decompress(stream, shape, dtype, backend="auto")
+    assert out.dtype == dtype and out.tobytes() == data.tobytes()
+
+
+@pytest.mark.parametrize("backend", ["golden", "torch"])
+def test_named_backend_and_its_options_reach_the_offloader(backend):
+    data = host_data(np.float64, (64, 65))
+    stream, words = nt.compress(data, backend, timing_mode="wall")
+    assert stream.tobytes() == golden.compress(data)[0].tobytes()
+    assert nt.decompress(stream, data.shape, np.float64, backend=backend).tobytes() == data.tobytes()
+    with pytest.raises(TypeError):
+        nt.compress(data, backend, no_such_option=1)
+
+
+def test_default_backend_without_a_gpu_raises_naming_it():
+    """The default backend is the card's: without one the call says so, and
+    does not fall back or fail inside torch."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU answers here")
+    data = host_data(np.float32, (4096,))
+    with pytest.raises(RuntimeError, match="NVIDIA GPU"):
+        nt.compress(data)
+    with pytest.raises(RuntimeError, match="NVIDIA GPU"):
+        nt.decompress(golden.compress(data)[0], data.shape, np.float32)
+    with pytest.raises(RuntimeError, match="NVIDIA GPU"):
+        nt.compress(data, device="cuda")
+
+
+def test_device_runs_there_and_excludes_a_backend():
+    data = host_data(np.float32, (130, 70))
+    stream, words = nt.compress(data, device="cpu")
+    assert (stream.tobytes(), words) == (golden.compress(data)[0].tobytes(), golden.compress(data)[1])
+    assert nt.decompress(stream, data.shape, device=torch.device("cpu")).tobytes() == data.tobytes()
+    for kwargs in ({"backend": "golden"}, {"backend": "auto"}, {"threads": 2}):
+        with pytest.raises(ValueError, match="device"):
+            nt.compress(data, device="cpu", **kwargs)
+        with pytest.raises(ValueError, match="device"):
+            nt.decompress(stream, data.shape, np.float32, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("name", ["Profile", "profile_for", "compressed_bound_words", "num_hypercubes"])
+def test_reexports_are_the_ports_own(name):
+    from ndzip_tpu import format as ref_format
+
+    assert nt.format is port_format and getattr(nt, name) is getattr(port_format, name)
+    assert getattr(nt, name) is not getattr(ref_format, name)
+
+
+@pytest.mark.parametrize("dtype,shape", HOST_CASES, ids=HOST_IDS)
+def test_api_device_functions_on_the_cpu_equal_golden(dtype, shape):
+    data = host_data(dtype, shape)
+    x = torch.from_numpy(data)
+    stream, length = api.compress_device(x)
+    assert interop.stream_to_numpy(stream, length).tobytes() == golden.compress(data)[0].tobytes()
+    out = api.decompress_device(stream[: int(length)], shape, x.dtype)
+    assert out.dtype == x.dtype and torch.equal(codec_torch.as_words(out), codec_torch.as_words(x))
 
 
 #: (shape, word bits, whether its stream's length may not fit an int32)
