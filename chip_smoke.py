@@ -38,7 +38,16 @@ line each, and any failure raises and exits nonzero:
    elements (bench.py's headline data) and 2^28 + 17, fp32 2D/3D at
    bench.py's CESM 1800x3600, 256^3 and 512x512x2048 (2 GiB) cells, then
    fp64 at bench.py's 1D 2^23 and 512^3 (1 GiB) cells and its 1D formula at
-   2^27 + 17 (1 GiB, made on the card): streams equal to the
+   2^27 + 17 (1 GiB, made on the card); then four cells past the L2, made
+   on the card: ``2d_1gib`` (fp32 16384x16384, CESM's formula, 64x64
+   blocks, no border: B3/B4 in 2D), ``2d64_2gib`` (fp64 16400x16400, the
+   same formula, a border of 16 on both axes: B6/B8 in 2D), ``1d64_2gib``
+   (fp64 2^28 + 17, the 1D formula: B5/B7) and ``3d64_2gib`` (fp64
+   512x512x1036, the 512^3 formula, a border of 12 on the inner axis:
+   B6/B8 in 3D), the fp64 ones past 2^31 bytes, each launching its one
+   encode and one decode kernel and no other codec kernel, with
+   ``torch.cuda.max_memory_allocated()`` after each (its own peak, the
+   plain version's calls in it); streams equal to the
    plain version's on the card, bit-exact round trips, and the kernels'
    launch counts over each path, counted from 0 just before it. The tests
    hold the plain version's stream against the reference package byte for
@@ -54,8 +63,14 @@ line each, and any failure raises and exits nonzero:
    line: the bytes it must move at that size (input read once, output written
    once, the stream as long as this run's data makes it), the time the card's
    memory needs for them at ``HBM_BYTES_PER_S``, the kernel's device time and
-   its share of that bound;
-6. the entry points on the card: ``api.Offloader(..., "cuda",
+   its share of that bound, for the four cells past the L2 too; a line
+   gives the wall time of phases 4 and 5 on the cells up to 2 GiB and on
+   the four cells past the L2;
+6. the entry points on the card: ``api.Offloader(np.float32, 1)``, given
+   no backend, takes ``cuda`` (the default of every entry point without
+   ``NDZIP_TORCH_BACKEND``, which the script clears at its start) and
+   launches one encode and one decode kernel on 2^20 elements, stream equal
+   to the plain version's; ``api.Offloader(..., "cuda",
    timing_mode="device")`` on the 2^24 fp32 and 2^23 fp64 cells (streams
    equal to the plain version's, bit-exact round trips, the cell's encode
    and decode kernels launched, counted from 0 just before, device times
@@ -130,6 +145,7 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -225,15 +241,43 @@ def line64(dev, n: int):
             + 1e-3 * torch.randn(n, dtype=torch.float64, device=dev, generator=gen))
 
 
-def cube64(dev):
+def cube64(dev, inner: int = 512):
     """bench.py's fp64 512^3 cell (1 GiB): sin(z) cos(y) sin(2x) + 1e-3 * N(0, 1)
-    in float64, made on the card with a torch.Generator seeded with SEED."""
+    in float64 on linspace(0, 9) along each axis, made on the card with a
+    torch.Generator seeded with SEED; ``inner`` points on the inner axis."""
     import torch
 
     z = torch.linspace(0, 9.0, 512, dtype=torch.float64, device=dev)
+    x = torch.linspace(0, 9.0, inner, dtype=torch.float64, device=dev)
     gen = torch.Generator(device=dev).manual_seed(SEED)
-    d = torch.sin(z[:, None, None]) * torch.cos(z[None, :, None]) * torch.sin(2 * z[None, None, :])
-    return d + 1e-3 * torch.randn((512, 512, 512), dtype=torch.float64, device=dev, generator=gen)
+    d = torch.sin(z[:, None, None]) * torch.cos(z[None, :, None]) * torch.sin(2 * x[None, None, :])
+    return d + 1e-3 * torch.randn((512, 512, inner), dtype=torch.float64, device=dev, generator=gen)
+
+
+def field2d(dev, rows: int, cols: int, dtype):
+    """cesm_data's formula, sin(y) cos(x) + 1e-3 * N(0, 1) on linspace(0, 11) x
+    linspace(0, 7), at rows x cols in ``dtype``, computed in float64 on the
+    card with a torch.Generator seeded with SEED."""
+    import torch
+
+    y = torch.linspace(0, 11.0, rows, dtype=torch.float64, device=dev)[:, None]
+    x = torch.linspace(0, 7.0, cols, dtype=torch.float64, device=dev)[None, :]
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    d = torch.sin(y) * torch.cos(x) + 1e-3 * torch.randn((rows, cols), dtype=torch.float64, device=dev,
+                                                           generator=gen)
+    return d.to(dtype)
+
+
+def past_l2_cells(dev):
+    """Phases 4 and 5's cells past the L2, (label, the data made on the card):
+    B3/B4 in 2D at 1 GiB, then B6/B8 in 2D, B5/B7 and B6/B8 in 3D past 2^31
+    bytes, the fp64 ones with a border."""
+    import torch
+
+    return (("2d_1gib fp32 16384x16384", lambda: field2d(dev, 16384, 16384, torch.float32)),
+            ("2d64_2gib fp64 16400x16400", lambda: field2d(dev, 16400, 16400, torch.float64)),
+            ("1d64_2gib fp64 2^28+17", lambda: line64(dev, 2**28 + 17)),
+            ("3d64_2gib fp64 512x512x1036", lambda: cube64(dev, 1036)))
 
 
 #: traces that device_us and flushed_and_warm took again, by the check that caught them, and the traces
@@ -939,6 +983,8 @@ def main() -> int:
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
+    # phases 6 and 10 call entry points with no backend as a caller without the variable does: on the card
+    os.environ.pop(api.BACKEND_ENV, None)
 
     # ---- 1. device
     name = torch.cuda.get_device_name(0)
@@ -1291,6 +1337,7 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- 4. the fp32 1D path, through the public entry points
+    t_phase45 = time.perf_counter()
     n24, n28 = 2**24, 2**28 + 17
     x24 = torch.from_numpy(bench_data(n24)).to(dev)
     x28 = line32(dev, n28)
@@ -1452,7 +1499,8 @@ def main() -> int:
         enc, dec = kernel_keys(x)
         if counts[enc] == 0 or counts[dec] == 0:
             fail(f"{label}: the fp64 path did not launch {enc} and {dec}: {counts}")
-        launches[enc], launches[dec] = counts[enc], counts[dec]
+        launches[enc] = launches.get(enc, 0) + counts[enc]
+        launches[dec] = launches.get(dec, 0) + counts[dec]
         check_cell(x, s, L, y, label)
         print(f"[4 path fp64] {label}: stream == plain ({L} u32 words, ratio {L / (2 * x.numel()):.4f}), "
               f"round trip bit-exact; launches {counts}", flush=True)
@@ -1462,8 +1510,63 @@ def main() -> int:
         record_codec(x, sl, rows, label)
         del x, sl
         torch.cuda.empty_cache()
+    t_cells = time.perf_counter() - t_phase45
+
+    # ---- 4 and 5 past the L2: fp32 2D at 1 GiB, fp64 1D, 2D and 3D past 2^31 bytes, with borders. Each
+    # cell launches its one encode and one decode kernel and no other, and the peak memory is its own.
+    t0 = time.perf_counter()
+    for label, make in past_l2_cells(dev):
+        torch.cuda.reset_peak_memory_stats(dev)
+        x = make()
+        shape, (enc, dec) = tuple(x.shape), kernel_keys(x)
+        torch.cuda.synchronize()
+        for k in codec_cuda.LAUNCHES:
+            codec_cuda.LAUNCHES[k] = 0
+        s, length = nt.compress_device(x)
+        L = int(length)
+        y = nt.decompress_device(s[:L], shape, x.dtype)
+        torch.cuda.synchronize()
+        counts = dict(codec_cuda.LAUNCHES)
+        if counts != {k: int(k in (enc, dec)) for k in counts}:
+            fail(f"{label}: launched {counts}, not one {enc} and one {dec} and no other codec kernel")
+        for k in (enc, dec):
+            launches[k] = launches.get(k, 0) + 1
+        check_cell(x, s, L, y, label)
+        print(f"[4 path past the L2] {label} ({x.numel() * x.element_size()} bytes): stream == plain ({L} u32 "
+              f"words, ratio {L * 4 / (x.numel() * x.element_size()):.4f}), round trip bit-exact; launches "
+              f"{enc} 1, {dec} 1, no other", flush=True)
+        del s, y
+        rows, sl = time_cell(x, label)
+        record_codec(x, sl, rows, label)
+        del x, sl
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"[4 memory] {label}: torch.cuda.max_memory_allocated() {peak} bytes ({peak / 2**30:.2f} GiB), "
+              f"the plain version's calls included", flush=True)
+        torch.cuda.empty_cache()
+    print(f"[5 done] phases 4 and 5 took {t_cells:.1f} s on the cells up to 2 GiB and "
+          f"{time.perf_counter() - t0:.1f} s on the four cells past the L2, of wall time", flush=True)
 
     # ---- 6. the entry points on the card: Offloader, CLI, warm
+    # given no backend, the Offloader takes the card's kernels (an API default, not a fallback)
+    data = bench_data(2**20)
+    w = cuda_words(data)
+    ps, pl = codec_torch.encode(w)
+    for k in codec_cuda.LAUNCHES:
+        codec_cuda.LAUNCHES[k] = 0
+    off = api.Offloader(np.float32, 1)
+    s, words = off.compress(data)
+    out = off.decompress(s, data.shape)
+    torch.cuda.synchronize()
+    counts = dict(codec_cuda.LAUNCHES)
+    if off.backend != "cuda" or counts != {k: int(k in ("encode", "decode")) for k in counts}:
+        fail(f"api.Offloader(np.float32, 1) took backend {off.backend!r} and launched {counts}, not cuda's "
+             f"encode and decode once each")
+    if s.tobytes() != ps[: int(pl)].cpu().numpy().tobytes() or out.tobytes() != data.tobytes():
+        fail("api.Offloader(np.float32, 1): stream != the plain version's, or the round trip is not bit-exact")
+    print(f"[6 offloader] api.Offloader(np.float32, 1), no backend: backend {off.backend!r}, launches encode 1, "
+          f"decode 1, no other; 2^20: stream == plain ({words} words), round trip bit-exact", flush=True)
+    del w, ps, out
+
     # Two calls each: the first after empty_cache() also pays the caching allocator's cudaMalloc.
     # Device timing leaves the host's time to enqueue out, so each reading must lie within
     # DEVICE_TIMING_BAND of measure()'s median of the same device time, and that median may not

@@ -15,17 +15,20 @@ profile's words, as ``ndzip_tpu.compress`` does.
 
 ``compress``/``decompress`` take numpy arrays and a backend by name, as
 ``ndzip_tpu.compress``/``decompress`` do, through ``api.make_offloader``.
-The default backend is ``cuda``: without a GPU they raise RuntimeError, and
-nothing falls back. ``backend="auto"`` takes the card where one answers, else
-the CPU codecs (see ``api``). ``device=`` instead runs the call on that
-device's path, as above.
+``device=`` instead runs the call on that device's path, as above.
 
 The objects of ``api`` (``make_compressor``, ``make_decompressor``,
 ``make_offloader``, ``Offloader``, ``CompressorRequirements``) take numpy
-arrays and a backend by name. ``python -m ndzip_tpu_torch.cli`` is the
-command-line compressor, ``.warm`` builds and loads the kernels for planned
-shapes, ``.ubench`` times the codec stage by stage, and ``.bench`` prints the
-headline throughputs on the card as one JSON line.
+arrays and a backend by name. Every entry point that is given no backend
+(these, ``compress``/``decompress`` and the CLI's ``-e``) takes the one that
+``NDZIP_TORCH_BACKEND`` names where that is set, else ``cuda``: without a
+GPU it raises RuntimeError, and nothing falls back. ``backend="auto"`` asks
+for the card where one answers, else the CPU codecs (see ``api``).
+
+``python -m ndzip_tpu_torch.cli`` is the command-line compressor, ``.warm``
+builds and loads the kernels for planned shapes, ``.ubench`` times the codec
+stage by stage, and ``.bench`` prints the headline throughputs on the card
+as one JSON line.
 """
 
 from __future__ import annotations
@@ -67,12 +70,13 @@ def decompress_device(stream: torch.Tensor, shape, dtype=torch.float32) -> torch
     return codec_torch.decode(stream, shape, out_dtype.itemsize * 8).view(out_dtype)
 
 
-def compress(data: np.ndarray, backend="cuda", device=None, **kwargs) -> tuple[np.ndarray, int]:
+def compress(data: np.ndarray, backend=None, device=None, **kwargs) -> tuple[np.ndarray, int]:
     """Compress a float32/float64 numpy array of 1-3 dims; returns (uint32
     stream, length in the profile's words) as ``ndzip_tpu.compress`` does.
 
-    ``backend`` and ``kwargs`` go to ``api.make_offloader``. With ``device``
-    (and no other backend) the call runs on that device instead: the kernels
+    ``backend`` (default: ``NDZIP_TORCH_BACKEND`` where set, else ``cuda``)
+    and ``kwargs`` go to ``api.make_offloader``. With ``device`` (and no
+    backend) the call runs on that device instead: the kernels
     on a CUDA device, the plain versions on the CPU."""
     if device is None:
         return make_offloader(backend, data.dtype, data.ndim, **kwargs).compress(data)
@@ -82,7 +86,7 @@ def compress(data: np.ndarray, backend="cuda", device=None, **kwargs) -> tuple[n
     return interop.stream_to_numpy(stream, length), length // (words.element_size() // 4)
 
 
-def decompress(stream: np.ndarray, shape, dtype=np.float32, backend="cuda", device=None, **kwargs) -> np.ndarray:
+def decompress(stream: np.ndarray, shape, dtype=np.float32, backend=None, device=None, **kwargs) -> np.ndarray:
     """Decompress a uint32 numpy stream into a numpy array of ``shape`` and
     ``dtype``, with ``backend`` or on ``device`` as ``compress``."""
     if device is None:
@@ -94,7 +98,7 @@ def decompress(stream: np.ndarray, shape, dtype=np.float32, backend="cuda", devi
 def _device(device, backend, kwargs) -> torch.device:
     """``device`` for a call that names one, which then takes no other backend
     and no options; a CUDA device needs a GPU."""
-    if backend != "cuda" or kwargs:
+    if backend is not None or kwargs:
         raise ValueError(f"pass device= or backend=/options, not both (device={device!r}, backend={backend!r})")
     device = torch.device(device)
     if device.type == "cuda":

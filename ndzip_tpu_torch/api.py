@@ -18,6 +18,14 @@ Backends, all of which give the same stream byte for byte:
   unknown ``backend``), else ``cuda`` where a GPU is present, else ``cpu``
   where the native codec builds, else ``golden``
   (``ndzip_tpu/api.py:214-225``); never ``sharded``.
+
+A call that names no backend (``backend=None``: ``make_compressor``,
+``make_decompressor``, ``Offloader``, the package's ``compress`` and
+``decompress`` and the CLI's ``-e``) takes the one that
+``NDZIP_TORCH_BACKEND`` names where that is set, else ``cuda``: without a GPU
+it raises RuntimeError naming the GPU, and nothing falls back to the CPU.
+``auto`` probes only where the caller asks for it, by name or in the
+variable.
 """
 
 from __future__ import annotations
@@ -227,11 +235,13 @@ class _ShardedDecompressor(_Sharded, Decompressor):
         return sharded.decompress_sharded(np.asarray(stream), tuple(shape), self.dtype, self.mesh)
 
 
-#: the environment variable that picks the backend of ``auto``
+#: the environment variable that names the backend of a call that names none, and of ``auto``
 BACKEND_ENV = "NDZIP_TORCH_BACKEND"
 
 
-def _resolve_backend(backend: str) -> str:
+def _resolve_backend(backend) -> str:
+    if backend is None:
+        backend = os.environ.get(BACKEND_ENV, "cuda")
     if backend == "auto":
         backend = os.environ.get(BACKEND_ENV, "auto")
     if backend != "auto":
@@ -263,7 +273,7 @@ def _torch_dtype(dtype) -> torch.dtype:
     return torch.float64 if fmt.word_bits_for_dtype(np.dtype(dtype)) == 64 else torch.float32
 
 
-def make_compressor(dtype, dims, backend="auto", threads=1, requirements=None) -> Compressor:
+def make_compressor(dtype, dims, backend=None, threads=1, requirements=None) -> Compressor:
     backend = _resolve_backend(backend)
     cls = _COMPRESSORS.get(backend)
     if cls is None:
@@ -275,7 +285,7 @@ def make_compressor(dtype, dims, backend="auto", threads=1, requirements=None) -
     return cls(dtype, dims)
 
 
-def make_decompressor(dtype, dims, backend="auto", threads=1) -> Decompressor:
+def make_decompressor(dtype, dims, backend=None, threads=1) -> Decompressor:
     backend = _resolve_backend(backend)
     cls = _DECOMPRESSORS.get(backend)
     if cls is None:
@@ -324,7 +334,7 @@ class Offloader:
     time of one compress and one decompress over ``reps`` calls
     (``utils.device_time_ms(..., queued=True)``); it needs ``cuda``."""
 
-    def __init__(self, dtype, dims, backend="auto", threads=1, timing_mode="wall"):
+    def __init__(self, dtype, dims, backend=None, threads=1, timing_mode="wall"):
         if timing_mode not in ("wall", "device"):
             raise ValueError("timing_mode must be 'wall' or 'device'")
         self.backend = _resolve_backend(backend)

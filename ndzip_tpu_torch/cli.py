@@ -31,9 +31,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-n", "--array-size", nargs="+", type=int, required=True,
                    metavar="N", help="array extents, first-major, 1-3 dims")
     p.add_argument("-t", "--data-type", choices=["float", "double"], default="float")
-    p.add_argument("-e", "--encoder", default="auto", choices=["auto", "cuda", "torch", "cpu", "golden", "sharded"],
-                   help="codec backend (default: auto: cuda where a GPU is present, else cpu or golden; "
-                        "'sharded' block-parallelizes over every visible GPU)")
+    p.add_argument("-e", "--encoder", choices=["auto", "cuda", "torch", "cpu", "golden", "sharded"],
+                   help=f"codec backend (default: the one ${api.BACKEND_ENV} names where it is set, else cuda, "
+                        "which fails without a GPU; 'auto' takes cuda where a GPU is present, else cpu or "
+                        "golden; 'sharded' block-parallelizes over every visible GPU)")
     p.add_argument("-T", "--threads", type=int, default=0, help="CPU backend threads (0 = all cores)")
     p.add_argument("-i", "--input", default="-", help="input file (default stdin)")
     p.add_argument("-o", "--output", default="-", help="output file (default stdout)")
@@ -95,7 +96,7 @@ def run(argv=None) -> int:
     raw, compressed = (in_bytes, out_bytes) if not args.decompress else (out_bytes, in_bytes)
     if raw:
         print(f"raw = {raw} bytes, compressed = {compressed} bytes, ratio = {compressed / raw:.4f}, "
-              f"codec time = {codec_ns / 1e6:.2f} ms ({args.encoder}->{off.backend}, {nchunks} chunk(s))",
+              f"codec time = {codec_ns / 1e6:.2f} ms ({args.encoder or 'default'}->{off.backend}, {nchunks} chunk(s))",
               file=sys.stderr)
     return 0
 

@@ -115,12 +115,13 @@ def test_auto_without_a_gpu_resolves_to_a_host_codec(no_gpu, monkeypatch):
 
 
 def test_backend_env_override_and_probe(no_gpu, monkeypatch):
-    """backend="auto" honours NDZIP_TORCH_BACKEND, an explicit backend passes
-    both the variable and the probe by, and an unknown name in the variable
-    raises as an unknown backend does (tests/test_api.py's case)."""
+    """No backend and backend="auto" honour NDZIP_TORCH_BACKEND, an explicit
+    backend passes both the variable and the probe by, and an unknown name in
+    the variable raises as an unknown backend does (tests/test_api.py's
+    case)."""
     assert api.BACKEND_ENV == "NDZIP_TORCH_BACKEND"
     monkeypatch.setenv(api.BACKEND_ENV, "golden")
-    assert api._resolve_backend("auto") == "golden"
+    assert api._resolve_backend("auto") == api._resolve_backend(None) == "golden"
     assert api.make_offloader("auto", np.float32, 1).backend == "golden"
     assert type(api.make_compressor(np.float32, 1)) is api._GoldenCompressor
     assert type(api.make_decompressor(np.float32, 1)) is api._GoldenDecompressor
@@ -141,15 +142,56 @@ def test_backend_env_override_and_probe(no_gpu, monkeypatch):
             api.make_decompressor(np.float32, 1, "auto")
         assert api.make_compressor(np.float32, 1, "golden").compress(data)[1] > 0
 
-    # "auto" in the variable, or no variable, leaves the probe to decide
+    # "auto" in the variable, or "auto" by name without it, leaves the probe to decide; no backend and
+    # no variable is the card, with a GPU or without
     monkeypatch.setenv(api.BACKEND_ENV, "auto")
     assert api._resolve_backend("auto") in ("cpu", "golden")
+    assert api._resolve_backend(None) in ("cpu", "golden")
     monkeypatch.delenv(api.BACKEND_ENV)
     assert api._resolve_backend("auto") in ("cpu", "golden")
+    assert api._resolve_backend(None) == "cuda"
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    assert api._resolve_backend("auto") == "cuda"
+    assert api._resolve_backend("auto") == api._resolve_backend(None) == "cuda"
     monkeypatch.setenv(api.BACKEND_ENV, "golden")
-    assert api._resolve_backend("auto") == "golden"
+    assert api._resolve_backend("auto") == api._resolve_backend(None) == "golden"
+
+
+#: the entry points of api that take no backend: each builds a compressor, a decompressor or both
+DEFAULT_ENTRY_POINTS = {
+    "make_compressor": lambda: api.make_compressor(np.float32, 1),
+    "make_decompressor": lambda: api.make_decompressor(np.float64, 3),
+    "Offloader": lambda: api.Offloader(np.float32, 1),
+    "Offloader device timing": lambda: api.Offloader(np.float64, 2, timing_mode="device"),
+}
+
+
+@pytest.mark.parametrize("entry", list(DEFAULT_ENTRY_POINTS))
+def test_default_backend_without_a_gpu_raises_naming_it(no_gpu, monkeypatch, entry):
+    """Given no backend and no NDZIP_TORCH_BACKEND, an entry point takes the
+    card, and without one it says so: no CPU codec stands in for it."""
+    monkeypatch.delenv(api.BACKEND_ENV, raising=False)
+    with pytest.raises(RuntimeError, match="needs an NVIDIA GPU"):
+        DEFAULT_ENTRY_POINTS[entry]()
+
+
+@pytest.mark.parametrize("backend", ["golden", "torch"])
+@pytest.mark.parametrize("entry", list(DEFAULT_ENTRY_POINTS))
+def test_default_backend_is_the_one_the_variable_names(no_gpu, monkeypatch, entry, backend):
+    """NDZIP_TORCH_BACKEND names the backend of an entry point given none,
+    and that backend's stream is golden's."""
+    monkeypatch.setenv(api.BACKEND_ENV, backend)
+    made = DEFAULT_ENTRY_POINTS[entry]()
+    cls = {"golden": (api._GoldenCompressor, api._GoldenDecompressor),
+           "torch": (api._TorchCompressor, api._TorchDecompressor)}[backend]
+    if isinstance(made, api.Offloader):
+        assert made.backend == backend and made.timing_mode == "wall"
+        assert (type(made._comp), type(made._dec)) == cls
+        data = np.sin(np.arange(64 * 70, dtype=made.dtype)).reshape((64, 70) if made.dims == 2 else (-1,))
+        stream, _ = made.compress(data)
+        assert stream.tobytes() == golden.compress(data)[0].tobytes()
+        assert made.decompress(stream, data.shape).tobytes() == data.tobytes()
+    else:
+        assert type(made) in cls
 
 
 def test_cuda_without_a_gpu_raises(no_gpu):

@@ -15,7 +15,7 @@ torch = pytest.importorskip("torch")
 
 from ndzip_tpu import cli as jax_cli  # noqa: E402
 from ndzip_tpu import golden, native  # noqa: E402
-from ndzip_tpu_torch import _build, cli, ubench, warm  # noqa: E402
+from ndzip_tpu_torch import _build, api, cli, ubench, warm  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 RNG = np.random.default_rng(78)
@@ -86,6 +86,32 @@ def test_cli_cuda_without_a_gpu_fails(tmp_path, capsys, monkeypatch):
     raw.write_bytes(np.zeros(4096, np.float32).tobytes())
     assert cli.run(["-n", "4096", "-e", "cuda", "-i", str(raw), "-o", str(tmp_path / "o")]) != 0
     assert "GPU" in capsys.readouterr().err
+
+
+def test_cli_without_an_encoder_or_a_gpu_fails(tmp_path, capsys, monkeypatch):
+    """No -e is the card, as the API's default: without a GPU the CLI exits
+    nonzero naming it and writes nothing, where it once fell back to a CPU
+    codec."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.delenv(api.BACKEND_ENV, raising=False)
+    raw, out = tmp_path / "in.f32", tmp_path / "o"
+    raw.write_bytes(np.zeros(4096, np.float32).tobytes())
+    for flags in ([], ["-d"]):
+        assert cli.run(["-n", "4096", *flags, "-i", str(raw), "-o", str(out)]) == 1
+        assert "needs an NVIDIA GPU" in capsys.readouterr().err
+    assert not out.exists()
+
+
+@pytest.mark.parametrize("backend", ["golden", "torch"])
+def test_cli_without_an_encoder_takes_the_variable(tmp_path, capsys, monkeypatch, backend):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv(api.BACKEND_ENV, backend)
+    data = np.sin(np.arange(4096 + 9, dtype=np.float32))
+    raw, ndz = tmp_path / "in.f32", tmp_path / "o.ndz"
+    raw.write_bytes(data.tobytes())
+    assert cli.run(["-n", str(data.size), "-i", str(raw), "-o", str(ndz)]) == 0
+    assert ndz.read_bytes() == golden.compress(data)[0].tobytes()
+    assert f"default->{backend}" in capsys.readouterr().err
 
 
 @pytest.mark.parametrize("shape", [(4096 * 2 + 5,), (130, 70), (17, 32, 33)], ids=str)

@@ -142,3 +142,58 @@ def test_odd_length_stream_is_refused():
     stream, length = nt.compress_device(torch.from_numpy(data))
     with pytest.raises(ValueError, match="whole number of u64 words"):
         nt.decompress_device(stream[: int(length) - 1], data.shape, torch.float64)
+
+
+def field2d(shape, dtype, seed):
+    """The 2D cells' data (bench.py's CESM formula): sin(y) cos(x) + 1e-3 N(0, 1)
+    on linspace(0, 11) x linspace(0, 7) at ``shape``."""
+    y = np.linspace(0, 11.0, shape[0])[:, None]
+    x = np.linspace(0, 7.0, shape[1])[None, :]
+    return (np.sin(y) * np.cos(x) + 1e-3 * np.random.default_rng(seed).standard_normal(shape)).astype(dtype)
+
+
+def line64(n, seed):
+    """The fp64 1D cells' data: sin(i * 1e-4) + 1e-3 N(0, 1)."""
+    return np.sin(np.arange(n, dtype=np.float64) * 1e-4) + 1e-3 * np.random.default_rng(seed).standard_normal(n)
+
+
+def cube64(shape, seed):
+    """The fp64 3D cells' data: sin(z) cos(y) sin(2x) + 1e-3 N(0, 1) on linspace(0, 9) along each axis."""
+    z, y, x = (np.linspace(0, 9.0, e) for e in shape)
+    return (np.sin(z[:, None, None]) * np.cos(y[None, :, None]) * np.sin(2 * x[None, None, :])
+            + 1e-3 * np.random.default_rng(seed).standard_normal(shape))
+
+
+#: chip_smoke.py's cells past the L2 at a reduced depth, each with its block and border structure (data,
+#: blocks, border elements); the fp32 2D cell stands here beside the fp64 ones, as one slice
+SLICE_CELLS = {
+    # 2d_1gib, fp32 16384x16384: 64x64 blocks, no border, 256-byte rows
+    "2d_1gib at (128,192)": (lambda: field2d((128, 192), np.float32, 40), 6, 0),
+    # 2d64_2gib, fp64 16400x16400: 64x64 blocks, a border of 16 on both axes
+    "2d64_2gib at (144,208)": (lambda: field2d((2 * 64 + 16, 3 * 64 + 16), np.float64, 41), 6, 144 * 208 - 128 * 192),
+    # 1d64_2gib, fp64 2^28 + 17: a border of 17
+    "1d64_2gib at 3*4096+17": (lambda: line64(3 * 4096 + 17, 42), 3, 17),
+    # 3d64_2gib, fp64 512x512x1036: 16^3 blocks, a border of 12 on the inner axis
+    "3d64_2gib at (32,32,76)": (lambda: cube64((2 * 16, 2 * 16, 4 * 16 + 12), 43), 16, 32 * 32 * 12),
+}
+
+
+@pytest.mark.parametrize("label", list(SLICE_CELLS))
+def test_slice_cells_at_reduced_depth_equal_golden(label):
+    """The JAX package's golden stream, byte for byte, from the plain path
+    (``compress_device`` on a CPU tensor) and the API's ``torch`` backend,
+    and both round trips bit-exact. Tolerance: none."""
+    from ndzip_tpu_torch import api
+
+    make, num_hc, border = SLICE_CELLS[label]
+    data = make()
+    assert (fmt.num_hypercubes(data.shape), fmt.border_element_count(data.shape)) == (num_hc, border)
+    g, g_len = golden.compress(data)
+    stream, length = nt.compress_device(torch.from_numpy(data))
+    assert interop.stream_to_numpy(stream, length).tobytes() == g.tobytes()
+    ours, words = api.make_compressor(data.dtype, data.ndim, "torch").compress(data)
+    assert words == g_len and ours.tobytes() == g.tobytes()
+    out = nt.decompress_device(stream[: int(length)], data.shape, torch.from_numpy(data).dtype)
+    assert out.numpy().tobytes() == data.tobytes()
+    back = api.make_decompressor(data.dtype, data.ndim, "torch").decompress(g, data.shape)
+    assert back.dtype == data.dtype and back.tobytes() == data.tobytes()

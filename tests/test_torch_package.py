@@ -167,11 +167,12 @@ def test_named_backend_and_its_options_reach_the_offloader(backend):
         nt.compress(data, backend, no_such_option=1)
 
 
-def test_default_backend_without_a_gpu_raises_naming_it():
+def test_default_backend_without_a_gpu_raises_naming_it(monkeypatch):
     """The default backend is the card's: without one the call says so, and
     does not fall back or fail inside torch."""
     if torch.cuda.is_available():
         pytest.skip("a GPU answers here")
+    monkeypatch.delenv(api.BACKEND_ENV, raising=False)
     data = host_data(np.float32, (4096,))
     with pytest.raises(RuntimeError, match="NVIDIA GPU"):
         nt.compress(data)
@@ -181,12 +182,24 @@ def test_default_backend_without_a_gpu_raises_naming_it():
         nt.compress(data, device="cuda")
 
 
+@pytest.mark.parametrize("backend", ["golden", "torch"])
+def test_default_backend_is_the_one_the_variable_names(monkeypatch, backend):
+    """NDZIP_TORCH_BACKEND names the backend of a call that names none, as in
+    ``api``; the stream is golden's either way."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setenv(api.BACKEND_ENV, backend)
+    data = host_data(np.float64, (17, 16, 35))
+    stream, words = nt.compress(data)
+    assert (stream.tobytes(), words) == (golden.compress(data)[0].tobytes(), golden.compress(data)[1])
+    assert nt.decompress(stream, data.shape, np.float64).tobytes() == data.tobytes()
+
+
 def test_device_runs_there_and_excludes_a_backend():
     data = host_data(np.float32, (130, 70))
     stream, words = nt.compress(data, device="cpu")
     assert (stream.tobytes(), words) == (golden.compress(data)[0].tobytes(), golden.compress(data)[1])
     assert nt.decompress(stream, data.shape, device=torch.device("cpu")).tobytes() == data.tobytes()
-    for kwargs in ({"backend": "golden"}, {"backend": "auto"}, {"threads": 2}):
+    for kwargs in ({"backend": "golden"}, {"backend": "auto"}, {"backend": "cuda"}, {"threads": 2}):
         with pytest.raises(ValueError, match="device"):
             nt.compress(data, device="cpu", **kwargs)
         with pytest.raises(ValueError, match="device"):
