@@ -147,7 +147,11 @@ def _cuda_ready():
 
 
 class _TorchCompressor(Compressor):
-    """The plain versions on the CPU."""
+    """The plain versions on the CPU. ``compress`` holds the staging spans
+    that ``_CudaCompressor`` inherits (``utils.trace``):
+    ``ndzip.offload.stage`` (the check and the copy to the device),
+    ``ndzip.offload.length`` (``int(length)``, the wait for the encode) and
+    ``ndzip.offload.copy_out`` (the stream's copy into numpy)."""
 
     device = "cpu"
 
@@ -161,12 +165,21 @@ class _TorchCompressor(Compressor):
         return codec_torch.encode(words)
 
     def compress(self, data):
-        stream, length = self.encode(self.stage(data))
-        length = int(length)
-        return interop.stream_to_numpy(stream, length), length // (self.word_bits // 32)
+        with utils.trace("ndzip.offload.stage"):
+            words = self.stage(data)
+        stream, length = self.encode(words)
+        with utils.trace("ndzip.offload.length"):
+            length = int(length)
+        with utils.trace("ndzip.offload.copy_out"):
+            out = interop.stream_to_numpy(stream, length)
+        return out, length // (self.word_bits // 32)
 
 
 class _TorchDecompressor(Decompressor):
+    """The plain versions on the CPU; ``decompress`` holds the spans
+    ``ndzip.offload.stage`` and ``ndzip.offload.copy_out``, as
+    ``_TorchCompressor.compress`` does."""
+
     device = "cpu"
 
     def stage(self, stream) -> torch.Tensor:
@@ -177,7 +190,11 @@ class _TorchDecompressor(Decompressor):
 
     def decompress(self, stream, shape):
         shape = tuple(shape)
-        return interop.words_to_numpy(self.decode(self.stage(stream), shape), self.dtype).reshape(shape)
+        with utils.trace("ndzip.offload.stage"):
+            staged = self.stage(stream)
+        words = self.decode(staged, shape)
+        with utils.trace("ndzip.offload.copy_out"):
+            return interop.words_to_numpy(words, self.dtype).reshape(shape)
 
 
 class _CudaCompressor(_TorchCompressor):

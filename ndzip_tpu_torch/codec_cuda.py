@@ -34,6 +34,14 @@ Only CUDA tensors are taken here: nothing falls back to the plain versions
 of ``codec_torch``, and a failed build or launch raises. ``LAUNCHES`` counts
 the launches of each wrapper, so a run can show that it went through the
 kernels.
+
+Spans (``utils.trace``, recorded only while a ``torch.profiler`` records or
+under ``NDZIP_TORCH_VERBOSE``): ``ndzip.compress_device`` and
+``ndzip.decompress_device`` around the whole of each API call (checks,
+allocations, the path's choice and its launch), and ``ndzip.launch`` inside
+it around each kernel's launch (the device guard, the current stream and the
+ctypes call with the memset and the kernel launch it makes). A call's glue
+is its span less its ``ndzip.launch`` children.
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import torch
 
 from . import _build
 from . import format as fmt
+from . import utils
 from .codec_torch import HC, as_words, output_dtype
 
 #: launches of each kernel wrapper since the count was last set to 0
@@ -64,7 +73,7 @@ def _check_cuda_words(name: str, t: torch.Tensor, dims=(1,), dtype=torch.int32):
 def _launch(fn, t: torch.Tensor, *args):
     """Launch on ``t``'s device and that device's current stream; the host
     thread's current device is restored afterwards."""
-    with torch.cuda.device(t.device):
+    with utils.trace("ndzip.launch"), torch.cuda.device(t.device):
         err = fn(*args, torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"{fn.__name__} failed with CUDA error {err}")
@@ -332,19 +341,21 @@ def compress_device(x: torch.Tensor):
     of ``ndzip_tpu.golden.compress``. The length is an int32, so a grid
     whose compressed bound reaches 2**31 u32 words (just under 8 GiB) raises
     ``ValueError`` (``codec_torch.check_stream_length``)."""
-    words = as_words(x)
-    _check_cuda_words("x", words, dims=(1, 2, 3), dtype=words.dtype)
-    if words.dtype == torch.int64:
-        return _encode_fp64_device(words)
-    return _encode_fp32_device(words)
+    with utils.trace("ndzip.compress_device"):
+        words = as_words(x)
+        _check_cuda_words("x", words, dims=(1, 2, 3), dtype=words.dtype)
+        if words.dtype == torch.int64:
+            return _encode_fp64_device(words)
+        return _encode_fp32_device(words)
 
 
 def decompress_device(stream: torch.Tensor, shape, dtype=torch.float32) -> torch.Tensor:
     """Decompress an int32 CUDA stream (``stream[:length]`` as it is, or the
     whole buffer) into a tensor of ``shape`` (1-3 dims): float32/float64 for
     those, int32/int64 for the word types."""
-    out_dtype = output_dtype(shape, dtype)
-    _check_cuda_words("stream", stream)
-    if out_dtype.itemsize == 8:
-        return _decode_fp64_device(stream, shape).view(out_dtype)
-    return _decode_fp32_device(stream, shape).view(out_dtype)
+    with utils.trace("ndzip.decompress_device"):
+        out_dtype = output_dtype(shape, dtype)
+        _check_cuda_words("stream", stream)
+        if out_dtype.itemsize == 8:
+            return _decode_fp64_device(stream, shape).view(out_dtype)
+        return _decode_fp32_device(stream, shape).view(out_dtype)

@@ -18,7 +18,8 @@ The reference gates its diagnostics behind ``NDZIP_VERBOSE``
 * ``log(...)``: a stderr logger, silent unless verbose;
 * ``trace(label)``: a ``torch.profiler.record_function`` span, which shows
   in a profiler trace, and under verbose a ``[profile] <label> <ms>`` line
-  of host time;
+  of host time; while no profiler records and verbose is off it does one
+  check and nothing else, so the program's spans stay in its hot path;
 * ``profiler_trace(log_dir)``: a ``torch.profiler`` trace of a region, of
   the CPU and, where a GPU answers, the card, written into ``log_dir`` as a
   Chrome/TensorBoard trace.
@@ -38,6 +39,7 @@ import sys
 import time
 
 import torch
+from torch.autograd import profiler as _autograd_profiler
 
 
 #: the first spin of a queued timing: about 1 ms at the H100's 1.98 GHz
@@ -120,17 +122,46 @@ def log(*args):
         print("[ndzip-torch]", *args, file=sys.stderr)
 
 
-@contextlib.contextmanager
+class _Span:
+    """``trace``'s span while a profiler records or under verbose."""
+
+    __slots__ = ("label", "_t0", "_rf")
+
+    def __init__(self, label: str):
+        self.label = label
+
+    def __enter__(self):
+        self._t0 = time.perf_counter()
+        self._rf = torch.profiler.record_function(self.label)
+        self._rf.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._rf.__exit__(*exc)
+        if verbose():
+            ms = (time.perf_counter() - self._t0) * 1e3
+            print(f"[profile] {self.label} {ms:.3f} ms", file=sys.stderr)
+        return False
+
+
+#: ``trace``'s span while nothing listens: enters nothing, reusable
+_OFF = contextlib.nullcontext()
+
+
 def trace(label: str):
-    """A ``torch.profiler.record_function(label)`` span around the region,
-    and under verbose a ``[profile] <label> <ms>`` line of its host time
-    (the analog of submit_and_profile, sycl_bits.hh:46-55)."""
-    t0 = time.perf_counter()
-    with torch.profiler.record_function(label):
-        yield
-    if verbose():
-        ms = (time.perf_counter() - t0) * 1e3
-        print(f"[profile] {label} {ms:.3f} ms", file=sys.stderr)
+    """A ``torch.profiler.record_function(label)`` span around the region
+    (``with trace(label):``), and under verbose a ``[profile] <label> <ms>``
+    line of its host time (the analog of submit_and_profile,
+    sycl_bits.hh:46-55). The span is entered only while a profiler records
+    or under verbose; otherwise the region runs inside a shared no-op, one
+    check where an idle ``record_function`` costs over ten times as much.
+    The check reads the flag that ``torch.profiler.profile`` and
+    ``torch.autograd.profiler.profile`` set while they record, which says
+    what ``torch.autograd._profiler_enabled()`` says without a call into
+    torch's library: the codec opens two spans a call on its hot path."""
+    if _autograd_profiler._is_profiler_enabled or verbose():
+        return _Span(label)
+    return _OFF
 
 
 @contextlib.contextmanager
