@@ -337,8 +337,10 @@ def traced_launches(fn, flush=None) -> tuple[dict[str, list[float]], dict[str, l
     last_step = max(e.time_range.start for e in events
                     if e.device_type.name == "CPU" and e.name.startswith("ProfilerStep"))
     one, calls = {}, {}
-    for e in events:  # kernels and copies; the step annotations and the spins are not the function's
-        if (e.device_type.name == "CUDA" and e.key not in skip and not e.key.startswith("ProfilerStep")
+    # kernels and copies; the step annotations, the spins and the program's spans (``utils.trace``,
+    # which the trace also gives as device ranges around their kernels) are not the function's
+    for e in events:
+        if (e.device_type.name == "CUDA" and e.key not in skip and not e.key.startswith(("ProfilerStep", "ndzip."))
                 and "spin_kernel" not in e.key):
             (one if e.time_range.start >= last_step else calls).setdefault(e.key, []).append(e.device_time_total)
     return one, calls

@@ -100,7 +100,8 @@ def placement_floor(blocks: torch.Tensor) -> torch.Tensor:
     _check_blocks(blocks)
     lib = _build.load()
     out = torch.empty((blocks.shape[0], FLOOR), dtype=torch.int32, device=blocks.device)
-    _launch(lib.ndzip_placement_floor, blocks, blocks.data_ptr(), blocks.shape[0], out.data_ptr())
+    _launch(lib.ndzip_placement_floor, blocks.get_device(), blocks.data_ptr(), blocks.shape[0],
+            out.data_ptr())
     LAUNCHES["placement_floor"] += 1
     return out
 
@@ -110,7 +111,8 @@ def placement_compute(blocks: torch.Tensor) -> torch.Tensor:
     _check_blocks(blocks)
     lib = _build.load()
     out = torch.empty((blocks.shape[0], DENSE), dtype=torch.int32, device=blocks.device)
-    _launch(lib.ndzip_placement_compute, blocks, blocks.data_ptr(), blocks.shape[0], out.data_ptr())
+    _launch(lib.ndzip_placement_compute, blocks.get_device(), blocks.data_ptr(), blocks.shape[0],
+            out.data_ptr())
     LAUNCHES["placement_compute"] += 1
     return out
 
@@ -123,7 +125,7 @@ def keep_mask(x: torch.Tensor, limit: int = P2_LIMIT) -> torch.Tensor:
         raise ValueError(f"x must be (R >= 1, {LANES}), got {tuple(x.shape)}")
     lib = _build.load()
     out = torch.empty_like(x)
-    _launch(lib.ndzip_keep_mask, x, x.data_ptr(), x.shape[0], int(limit), out.data_ptr())
+    _launch(lib.ndzip_keep_mask, x.get_device(), x.data_ptr(), x.shape[0], int(limit), out.data_ptr())
     LAUNCHES["keep_mask"] += 1
     return out
 
@@ -150,8 +152,8 @@ def gather_blocks_nd(words: torch.Tensor) -> torch.Tensor:
     num_hc = _grid_words("words", words)
     lib = _build.load()
     out = torch.empty((num_hc, HC), dtype=words.dtype, device=words.device)
-    _launch(lib.ndzip_gather_blocks_nd, words, words.data_ptr(), words.element_size(), words.dim(),
-            *_extents(words.shape), out.data_ptr())
+    _launch(lib.ndzip_gather_blocks_nd, words.get_device(), words.data_ptr(), words.element_size(),
+            words.dim(), *_extents(words.shape), out.data_ptr())
     LAUNCHES[_key("gather_blocks_nd", words)] += 1
     return out
 
@@ -166,6 +168,6 @@ def scatter_blocks_nd(blocks: torch.Tensor, out: torch.Tensor) -> None:
         raise ValueError(f"blocks must be ({num_hc}, {HC}) for a grid of shape {tuple(out.shape)}, "
                          f"got {tuple(blocks.shape)}")
     lib = _build.load()
-    _launch(lib.ndzip_scatter_blocks_nd, out, blocks.data_ptr(), out.element_size(), out.dim(),
+    _launch(lib.ndzip_scatter_blocks_nd, out.get_device(), blocks.data_ptr(), out.element_size(), out.dim(),
             *_extents(out.shape), out.data_ptr())
     LAUNCHES[_key("scatter_blocks_nd", out)] += 1
