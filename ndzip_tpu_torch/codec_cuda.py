@@ -50,15 +50,18 @@ thread's current device is another card.
 Only CUDA tensors are taken here: nothing falls back to the plain versions
 of ``codec_torch``, and a failed build or launch raises. ``LAUNCHES`` counts
 the launches of each wrapper, so a run can show that it went through the
-kernels.
+kernels. ``COPIES`` counts the copies the API makes of a caller's tensor
+before a launch: a non-contiguous input made contiguous, a 1D input at a
+16-byte misalignment cloned, an fp64 stream at an odd u32 offset realigned.
 
 Spans (``utils.trace``, recorded only while a ``torch.profiler`` records or
 under ``NDZIP_TORCH_VERBOSE``): ``ndzip.compress_device`` and
 ``ndzip.decompress_device`` around the whole of each API call (checks, the
 plan's lookup, allocations and the launch), and ``ndzip.launch`` inside it
 around each kernel's launch (the current device's check, the stream's
-handle and the ctypes call with the memset and the kernel launch it makes).
-A call's glue is its span less its ``ndzip.launch`` children.
+handle and the ctypes call with the memset and the kernel launch it makes),
+and ``ndzip.copy_in`` around each copy that ``COPIES`` counts. A call's glue
+is its span less its ``ndzip.launch`` children.
 """
 
 from __future__ import annotations
@@ -78,6 +81,8 @@ from .codec_torch import _WORDS, HC, as_words, check_stream_length, output_dtype
 #: launches of each kernel wrapper since the count was last set to 0
 LAUNCHES = {"encode": 0, "decode": 0, "encode_nd": 0, "decode_nd": 0,
             "encode64": 0, "decode64": 0, "encode64_nd": 0, "decode64_nd": 0}
+#: copies of a caller's tensor made before a launch, by cause, since the count was last set to 0
+COPIES = {"realign64": 0, "align1d": 0, "contiguous": 0}
 
 #: the torch dtypes ``decompress_device`` gives as they are named; others are parsed
 _OUT_DTYPES = {d: d for d in (torch.float32, torch.int32, torch.float64, torch.int64)}
@@ -306,6 +311,15 @@ def _decode_interior_fp64(stream: torch.Tensor, shape) -> torch.Tensor:
 # ------------------------------------------------------------ device API
 
 
+def _copy_in(cause: str, copy) -> torch.Tensor:
+    """``copy()`` of a caller's tensor, in an ``ndzip.copy_in`` span and
+    counted in ``COPIES[cause]``."""
+    with utils.trace("ndzip.copy_in"):
+        out = copy()
+    COPIES[cause] += 1
+    return out
+
+
 def compress_device(x: torch.Tensor):
     """Compress a float32/float64 (or int32/int64 word) CUDA tensor of 1-3
     dims on the card.
@@ -323,9 +337,10 @@ def compress_device(x: torch.Tensor):
             _check_cuda_words("x", as_words(x), dims=(1, 2, 3), dtype=words)
         plan = _plan("encode", tuple(x.shape), words, x.get_device())
         if not x.is_contiguous():
-            x = x.contiguous()
+            x = _copy_in("contiguous", x.contiguous)
         if plan.path == "1d" and x.data_ptr() % 16:
-            x = x.clone()  # held until the launch is queued, or the stream's allocation may take its block
+            # held until the launch is queued, or the stream's allocation may take its block
+            x = _copy_in("align1d", x.clone)
         if plan.path != "border":
             return _encode(plan, x.data_ptr())
         # all border: the stream is the words themselves
@@ -347,7 +362,7 @@ def decompress_device(stream: torch.Tensor, shape, dtype=torch.float32) -> torch
         if stream.dtype != torch.int32 or stream.dim() != 1 or not stream.is_contiguous():
             _check_cuda_words("stream", stream)
         if plan.words == torch.int64 and stream.data_ptr() % 8:  # a slice at an odd u32 offset: realign
-            stream = stream.clone()
+            stream = _copy_in("realign64", stream.clone)
         if plan.path != "border":
             _check_stream(plan, stream)
             return _decode(plan, stream, out_dtype)
