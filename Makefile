@@ -49,7 +49,7 @@ test-cuda:
 	NDZIP_TPU_TESTS_TPU=1 python -m pytest tests/test_torch_kernels.py tests/test_torch_stages.py \
 		tests/test_torch_api.py tests/test_torch_fuzz.py tests/test_torch_sharded.py \
 		tests/test_torch_benchmark.py tests/test_torch_bench.py tests/test_torch_spans.py \
-		tests/test_torch_plans.py tests/test_torch_copies.py -m cuda -q
+		tests/test_torch_plans.py tests/test_torch_copies.py tests/test_torch_codec_nd.py -m cuda -q
 
 bench-torch:
 	python -m ndzip_tpu_torch.bench

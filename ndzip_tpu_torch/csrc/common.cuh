@@ -44,6 +44,11 @@ __device__ __forceinline__ uint32_t load_clamped(const uint32_t* stream, uint64_
     return i < size ? stream[i] : 0u;
 }
 
+// The shared-state-space address of p, a pointer into shared memory.
+__device__ __forceinline__ uint32_t shared_address(const void* p) {
+    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
 // 32x32 bit-matrix transpose across a warp. Lane r holds word r of a chunk;
 // on return lane i holds word i of the transpose, in the format's MSB-first
 // convention: out[i] bit (31-j) == in[j] bit (31-i). The butterfly of
@@ -135,12 +140,64 @@ __device__ __forceinline__ uint64_t border_end(const Border& border, uint64_t c)
     return (c + 1) * kHcSize < border.count ? (c + 1) * kHcSize : border.count;
 }
 
-// A border CTA of the 2D/3D encoder: its share of the border of `words` to
-// `dst`, the stream from the word after the last body word on.
-__device__ __forceinline__ void encode_border(const uint32_t* __restrict__ words, const Border& border,
-                                              uint64_t c, uint32_t* __restrict__ dst) {
-    for (uint64_t i = c * kHcSize + threadIdx.x; i < border_end(border, c); i += kThreads)
-        dst[i] = words[border.offset(i)];
+// A border CTA of the 2D/3D encoder, before it waits for where the border
+// starts in the stream: its share of the border of `words` into x in stream
+// order (x[j] = element c * 4096 + j), each word by a 4-byte cp.async, which
+// holds no register, a thread's 16 issued back to back. A thread splits its
+// first element over (plane, row, column) once, in 32-bit arithmetic (the
+// border of a grid the codec takes has fewer than 2**31 elements), and steps
+// by kThreads from there: a division again only where a step leaves its
+// plane. Border::offset in this loop, two 64-bit divisions an element, was
+// measured: it took the encoder to 46-47 registers (five CTAs an SM, not
+// six) and the tail after the last block's sum at 1800x3600 from 1.8 to
+// 2.7 us (PERF.md). Returns when the thread's copies have landed.
+__device__ __forceinline__ void stage_border(const uint32_t* __restrict__ words, const Border& border,
+                                             uint64_t c, uint32_t* x) {
+    const uint32_t e2 = static_cast<uint32_t>(border.e2), b2 = static_cast<uint32_t>(border.b2);
+    const uint32_t r2 = e2 - b2;                                       // words of a row past the blocks
+    const uint32_t rows = static_cast<uint32_t>(border.b1) * r2;       // of a plane, those rows first
+    const uint32_t below = static_cast<uint32_t>(border.b1) * e2;      // then from row b1 on, all of it
+    const uint32_t per_p = rows + static_cast<uint32_t>(border.e1 - border.b1) * e2;
+    const uint32_t planes = static_cast<uint32_t>(border.b0) * per_p;  // then words[b0:]
+    const uint64_t plane = border.e1 * border.e2, tail = border.b0 * plane;
+    const uint32_t first = static_cast<uint32_t>(c) * kHcSize, end = static_cast<uint32_t>(border_end(border, c));
+    const uint32_t q = r2 ? kThreads / r2 : 0, m = r2 ? kThreads % r2 : 0;  // a step, in rows and words
+    uint32_t p = 0, j = 0, r = 0, col = 0;  // element i is word j of plane p, in the rows: row r, column col
+#pragma unroll
+    for (int k = 0; k < kWordsPerThread; ++k) {
+        const uint32_t at = threadIdx.x + k * kThreads, i = first + at;
+        if (i >= end) break;
+        uint64_t offset;
+        if (i >= planes) {
+            offset = tail + (i - planes);
+        } else {
+            if (k) {
+                j += kThreads;
+                r += q;
+                col += m;
+                if (col >= r2) col -= r2, ++r;
+            }
+            if (k == 0 || j >= per_p) {
+                p = i / per_p;
+                j = i - p * per_p;
+                r = r2 ? j / r2 : 0;
+                col = j - r * r2;
+            }
+            offset = p * plane + (j < rows ? static_cast<uint64_t>(r) * e2 + b2 + col : below + (j - rows));
+        }
+        asm volatile("cp.async.ca.shared.global [%0], [%1], 4;" ::"r"(shared_address(x + at)), "l"(words + offset)
+                     : "memory");
+    }
+    asm volatile("cp.async.wait_all;" ::: "memory");
+}
+
+// `length` words from shared memory to dst in global memory, a warp on one
+// whole 128-byte line at a time: lane l of the first warp on the word that
+// falls l words past a line's start.
+__device__ __forceinline__ void store_lines(uint32_t* __restrict__ dst, const uint32_t* src, int length) {
+    const int skew = static_cast<int>((reinterpret_cast<uintptr_t>(dst) >> 2) & 31);  // words past a line's start
+    for (int i = static_cast<int>(threadIdx.x) - skew; i < length; i += kThreads)
+        if (i >= 0) dst[i] = src[i];
 }
 
 // A border CTA of the decoders: its share of the border from the stream
@@ -326,10 +383,7 @@ __device__ __forceinline__ void encode_run(EncodeRunShared& s, uint64_t b, uint6
     }
     __syncthreads();
 
-    uint32_t* dst = stream + num_hc + s.exclusive;
-    const int skew = static_cast<int>((reinterpret_cast<uintptr_t>(dst) >> 2) & 31);  // words past a line's start
-    for (int i = t - skew; i < static_cast<int>(length); i += kThreads)
-        if (i >= 0) dst[i] = s.run[i];
+    store_lines(stream + num_hc + s.exclusive, s.run, static_cast<int>(length));
 }
 
 // ------------------------------------------------------------------------
@@ -338,10 +392,6 @@ __device__ __forceinline__ void encode_run(EncodeRunShared& s, uint64_t b, uint6
 // header[b-1] and length = header[b] - header[b-1], so one bulk copy (TMA's
 // 1D form, completing on an mbarrier) brings them in and the heads, the
 // 128-count scan and the rank gather read shared memory.
-
-__device__ __forceinline__ uint32_t shared_address(const void* p) {
-    return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 __device__ __forceinline__ void mbarrier_init(uint64_t* bar, uint32_t arrivals) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(shared_address(bar)), "r"(arrivals) : "memory");

@@ -43,13 +43,19 @@
 //   * the border has no bound (a grid of (20, 1024, 1024) has 1024 border
 //     CTAs of 4096 words, more than the card holds at once), so it cannot
 //     ride with the last block as the 1D tail does. Border CTAs are the CTAs
-//     whose ticket is num_hc or more: they wait for the last block's
-//     inclusive sum, which says where the border starts. Because they are
-//     told from block CTAs by ticket and not by blockIdx.x, every block's CTA
-//     has started when the first border CTA waits, so the wait ends whatever
-//     order the CTAs come in. The other sound way, a second small launch for
-//     the border that reads header[num_hc - 1], was measured too: it costs
-//     3 us more on every bordered grid and nothing less on any.
+//     whose ticket is num_hc or more, 4096 border words each. A border CTA
+//     first loads its share into shared memory, in stream order (common.cuh's
+//     stage_border: 4-byte cp.async copies, all of a thread's in flight at
+//     once, their grid offsets stepped from one 32-bit split a thread). Only
+//     then does it wait for the last block's inclusive sum, which says where
+//     the border starts, and store the share there in whole 128-byte lines.
+//     So the border's loads run beside the last blocks, and after the last
+//     sum only the stores remain. Because border CTAs are told from block
+//     CTAs by ticket and not by blockIdx.x, every block's CTA has started
+//     when the first border CTA waits, so the wait ends whatever order the
+//     CTAs come in. The other sound way, a second small launch for the
+//     border that reads header[num_hc - 1], was measured too: it costs 3 us
+//     more on every bordered grid and nothing less on any.
 // The status words and the ticket are cleared on the same CUDA stream before
 // the launch, and belong to one call.
 //
@@ -125,9 +131,12 @@ encode_blocks_nd(const uint32_t* __restrict__ words, Blocks<Dims> geo, Border bo
     __syncthreads();
     const uint64_t b = s.block;
     if (b >= num_hc) {  // a border CTA: the border starts after the last block's run
+        const uint64_t c = b - num_hc;
+        stage_border(words, border, c, s.x);
         if (threadIdx.x == 0) s.exclusive = wait_inclusive(status + num_hc - 1);
         __syncthreads();
-        encode_border(words, border, b - num_hc, stream + num_hc + s.exclusive);
+        store_lines(stream + num_hc + s.exclusive + c * kHcSize, s.x,
+                    static_cast<int>(border_end(border, c) - c * kHcSize));
         return;
     }
 

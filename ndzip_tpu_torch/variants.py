@@ -9,7 +9,10 @@ commands, both for a machine with nvcc and a GPU:
     all variants give the first variant's stream and give the input back,
     then times the encode and decode kernels of each variant in turns
     (A, B, ..., A, B, ...): ``--reps`` launches back to back with a CUDA
-    event between every two, ``--rounds`` rounds after one that warms up; it
+    event between every two, all queued behind a spin kernel so that the
+    events hold the device's time and not the host's time to enqueue a
+    launch (which exceeds a small grid's kernels), ``--rounds`` rounds
+    after one that warms up; it
     prints the median of all launches in us, each round's median, the least
     and the greatest launch, and the first launch of each round, which
     follows another kernel or a pause. 1D shapes go to the 1D kernels,
@@ -97,16 +100,22 @@ class Variant:
 
 
 def _us_of_launches(fn, reps: int) -> list[float]:
-    """The time of each of ``reps`` launches back to back, in us: an event
-    between every two, read when all have run."""
+    """The device time of each of ``reps`` launches back to back, in us: an
+    event between every two, all queued behind a spin kernel
+    (``utils.event_time_ms(queued=True)``), read when all have run."""
     import torch
 
+    from . import utils
+
     events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
-    events[0].record()
-    for e in events[1:]:
-        fn()
-        e.record()
-    events[-1].synchronize()
+
+    def launches():
+        events[0].record()
+        for e in events[1:]:
+            fn()
+            e.record()
+
+    utils.event_time_ms(launches, queued=True)
     return [a.elapsed_time(b) * 1e3 for a, b in zip(events, events[1:])]
 
 
