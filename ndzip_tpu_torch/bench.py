@@ -63,7 +63,7 @@ LAST_PATH = Path(__file__).resolve().parent / "build" / "bench_last.json"
 TIMING = (f"CUDA events around each call, its launches queued behind a spin kernel "
           f"(utils.device_time_ms(queued=True)): median of {REPS} after {WARMUP} warm-ups")
 MULTIHOST = ("not timed here: the multi-process path (parallel.multihost over torch.distributed) is held by "
-             "tests/test_torch_multihost.py and run on the card by chip_smoke.py phase 8")
+             "tests/test_torch_multihost.py, on the card by its cuda cases")
 
 
 def fp32_1d(rng) -> np.ndarray:

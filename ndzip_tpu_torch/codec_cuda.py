@@ -212,16 +212,33 @@ def _decode(plan: _Plan, stream: torch.Tensor, dtype: torch.dtype) -> torch.Tens
     return out
 
 
+def _encode_kernel(words: torch.Tensor, word_dtype: torch.dtype, dims: tuple):
+    """The encode wrappers' body: ``words`` of ``word_dtype`` with ``dims``
+    dims, checked and launched; a 1D input must be 16-byte aligned."""
+    _check_cuda_words("words", words, dims, word_dtype)
+    plan = _kernel_plan("encode", tuple(words.shape), word_dtype, words.get_device())
+    if dims == (1,) and words.data_ptr() % 16:
+        raise ValueError("words must be 16-byte aligned")
+    return _encode(plan, words.data_ptr())
+
+
+def _decode_kernel(stream: torch.Tensor, shape: tuple, word_dtype: torch.dtype, dims: tuple) -> torch.Tensor:
+    """The decode wrappers' body: ``stream`` checked and decoded into words
+    of ``word_dtype`` and ``shape``, which has ``dims`` dims."""
+    _check_cuda_words("stream", stream)
+    if len(shape) not in dims:
+        raise ValueError(f"the nd decode kernel takes 2D/3D shapes, got {shape}")
+    plan = _kernel_plan("decode", shape, word_dtype, stream.get_device())
+    _check_stream(plan, stream)
+    return _decode(plan, stream, word_dtype)
+
+
 def _encode_blocks_fp32(words: torch.Tensor):
     """Encode (n,) int32 words, n >= 4096, 16-byte aligned, on the card.
     Returns ``(stream, length)``: the int32 stream in a buffer of the
     compressed bound (words past ``length`` are undefined) and the int32
     length as a device scalar. No host sync."""
-    _check_cuda_words("words", words)
-    plan = _kernel_plan("encode", tuple(words.shape), torch.int32, words.get_device())
-    if words.data_ptr() % 16:
-        raise ValueError("words must be 16-byte aligned")
-    return _encode(plan, words.data_ptr())
+    return _encode_kernel(words, torch.int32, (1,))
 
 
 def _decode_blocks_fp32(stream: torch.Tensor, n: int) -> torch.Tensor:
@@ -229,10 +246,7 @@ def _decode_blocks_fp32(stream: torch.Tensor, n: int) -> torch.Tensor:
     the card, n >= 4096. Reads only the words each block owns, so the stream
     needs no padding, may start at any word of its storage (a slice), and
     what lies past its length does not matter."""
-    _check_cuda_words("stream", stream)
-    plan = _kernel_plan("decode", (n,), torch.int32, stream.get_device())
-    _check_stream(plan, stream)
-    return _decode(plan, stream, torch.int32)
+    return _decode_kernel(stream, (n,), torch.int32, (1,))
 
 
 def _encode_interior_fp32(words: torch.Tensor):
@@ -240,9 +254,7 @@ def _encode_interior_fp32(words: torch.Tensor):
     the card, in one launch that reads the grid once: blocks read straight
     from the grid, border copied after them. Returns ``(stream, length)`` as
     ``_encode_blocks_fp32``. No host sync."""
-    _check_cuda_words("words", words, dims=(2, 3))
-    plan = _kernel_plan("encode", tuple(words.shape), torch.int32, words.get_device())
-    return _encode(plan, words.data_ptr())
+    return _encode_kernel(words, torch.int32, (2, 3))
 
 
 def _decode_interior_fp32(stream: torch.Tensor, shape) -> torch.Tensor:
@@ -252,13 +264,7 @@ def _decode_interior_fp32(stream: torch.Tensor, shape) -> torch.Tensor:
     the stream needs no padding, may start at any word of its storage (a
     slice), and what lies past its length does not matter, as for
     ``_decode_blocks_fp32``."""
-    _check_cuda_words("stream", stream)
-    shape = tuple(shape)
-    if len(shape) not in (2, 3):
-        raise ValueError(f"the nd decode kernel takes 2D/3D shapes, got {shape}")
-    plan = _kernel_plan("decode", shape, torch.int32, stream.get_device())
-    _check_stream(plan, stream)
-    return _decode(plan, stream, torch.int32)
+    return _decode_kernel(stream, tuple(shape), torch.int32, (2, 3))
 
 
 def _encode_blocks_fp64(words: torch.Tensor):
@@ -266,11 +272,7 @@ def _encode_blocks_fp64(words: torch.Tensor):
     Returns ``(stream, length)``: the int32 stream in a buffer of the fp64
     compressed bound (words past ``length`` are undefined) and its length in
     u32 words as an int32 device scalar. No host sync."""
-    _check_cuda_words("words", words, dtype=torch.int64)
-    plan = _kernel_plan("encode", tuple(words.shape), torch.int64, words.get_device())
-    if words.data_ptr() % 16:
-        raise ValueError("words must be 16-byte aligned")
-    return _encode(plan, words.data_ptr())
+    return _encode_kernel(words, torch.int64, (1,))
 
 
 def _decode_blocks_fp64(stream: torch.Tensor, n: int) -> torch.Tensor:
@@ -278,10 +280,7 @@ def _decode_blocks_fp64(stream: torch.Tensor, n: int) -> torch.Tensor:
     on the card, n >= 4096. Reads only the words each block owns, so the
     stream needs no padding, may start at any u64 word of its storage (a
     slice), and what lies past its length does not matter."""
-    _check_cuda_words("stream", stream)
-    plan = _kernel_plan("decode", (n,), torch.int64, stream.get_device())
-    _check_stream(plan, stream)
-    return _decode(plan, stream, torch.int64)
+    return _decode_kernel(stream, (n,), torch.int64, (1,))
 
 
 def _encode_interior_fp64(words: torch.Tensor):
@@ -289,9 +288,7 @@ def _encode_interior_fp64(words: torch.Tensor):
     the card, in one launch that reads the grid once: blocks read straight
     from the grid, border copied after them. Returns ``(stream, length)`` as
     ``_encode_blocks_fp64``. No host sync."""
-    _check_cuda_words("words", words, dims=(2, 3), dtype=torch.int64)
-    plan = _kernel_plan("encode", tuple(words.shape), torch.int64, words.get_device())
-    return _encode(plan, words.data_ptr())
+    return _encode_kernel(words, torch.int64, (2, 3))
 
 
 def _decode_interior_fp64(stream: torch.Tensor, shape) -> torch.Tensor:
@@ -299,13 +296,7 @@ def _decode_interior_fp64(stream: torch.Tensor, shape) -> torch.Tensor:
     with at least one whole block on the card: blocks stored straight into
     the grid, border placed from the stream. Takes the stream as
     ``_decode_blocks_fp64`` does."""
-    _check_cuda_words("stream", stream)
-    shape = tuple(shape)
-    if len(shape) not in (2, 3):
-        raise ValueError(f"the nd decode kernel takes 2D/3D shapes, got {shape}")
-    plan = _kernel_plan("decode", shape, torch.int64, stream.get_device())
-    _check_stream(plan, stream)
-    return _decode(plan, stream, torch.int64)
+    return _decode_kernel(stream, tuple(shape), torch.int64, (2, 3))
 
 
 # ------------------------------------------------------------ device API

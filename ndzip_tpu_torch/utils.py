@@ -1,5 +1,5 @@
 """Timers, the card's name and the observability utilities, shared by
-``chip_smoke.py``, ``ubench``, ``benchmark`` and ``api.Offloader``.
+``variants``, ``ubench``, ``bench``, ``benchmark`` and ``api.Offloader``.
 
 The counterpart of ``ndzip_tpu/utils/__init__.py``. On the card a call is
 timed with CUDA events around it on the current stream: the device time of

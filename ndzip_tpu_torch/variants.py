@@ -15,7 +15,11 @@ commands, both for a machine with nvcc and a GPU:
     after one that warms up; it
     prints the median of all launches in us, each round's median, the least
     and the greatest launch, and the first launch of each round, which
-    follows another kernel or a pause. 1D shapes go to the 1D kernels,
+    follows another kernel or a pause, and beside the median the kernel's
+    bound: the bytes it must move (the input read once, the stream written
+    or read once at this run's length), the time the card's memory needs for
+    them at ``HBM_BYTES_PER_S`` and that bound over the median. 1D shapes go
+    to the 1D kernels,
     2D/3D shapes to the nd kernels, of the fp32 profile or, with ``--dtype
     float64``, of the fp64 one (int64 words, the fp64 stream bound). Prints
     what ``ptxas -v`` says of the kernels whose name contains ``--ptxas``.
@@ -41,6 +45,8 @@ import sys
 import tempfile
 from pathlib import Path
 
+#: the H100 SXM's memory rate (NVIDIA's data sheet), which bounds every codec kernel
+HBM_BYTES_PER_S = 3.35e12
 ENTRY_POINTS = ["ndzip_encode_fp32", "ndzip_decode_fp32", "ndzip_encode_fp32_nd", "ndzip_decode_fp32_nd",
                 "ndzip_encode_fp64", "ndzip_decode_fp64", "ndzip_encode_fp64_nd", "ndzip_decode_fp64_nd"]
 
@@ -50,9 +56,10 @@ def _shape(text: str) -> tuple[int, ...]:
 
 
 class Variant:
-    """One directory of sources, built and loaded, with the codec kernels'
-    wrappers on raw pointers (the arguments of ``_build.SIGNATURES``): fp32
-    for int32 words, fp64 for int64 words."""
+    """One directory of sources, built and loaded, whose codec kernels launch
+    as ``codec_cuda`` launches its own: the entry point and the integer
+    arguments of the launch plan (``codec_cuda._plan``) for the words' shape
+    and dtype (int32 words for fp32, int64 for fp64)."""
 
     def __init__(self, csrc: Path):
         from . import _build
@@ -61,42 +68,29 @@ class Variant:
         self.csrc = csrc
         self.lib = _build.load_from(csrc, ENTRY_POINTS)
 
-    def encode(self, words, stream, scratch, length):
-        import torch
+    def _entry(self, op: str, shape, word_dtype):
+        """This library's entry point of ``op`` for the shape, and the plan
+        that gives its integer arguments."""
+        from . import codec_cuda
 
-        from .codec_cuda import _extents
-        from .codec_torch import HC
+        plan = codec_cuda._kernel_plan(op, tuple(shape), word_dtype, 0)
+        return getattr(self.lib, plan.fn.__name__), plan
 
-        cs = torch.cuda.current_stream().cuda_stream
-        bits = 8 * words.element_size()
-        if words.dim() == 1:
-            n = words.numel()
-            err = getattr(self.lib, f"ndzip_encode_fp{bits}")(words.data_ptr(), n // HC, n % HC, stream.data_ptr(),
-                                                              scratch.data_ptr(), length.data_ptr(), cs)
-        else:
-            err = getattr(self.lib, f"ndzip_encode_fp{bits}_nd")(words.data_ptr(), words.dim(), *_extents(words.shape),
-                                                                 stream.data_ptr(), scratch.data_ptr(),
-                                                                 length.data_ptr(), cs)
-        if err:
-            raise RuntimeError(f"{self.name}: encode failed with CUDA error {err}")
+    def encode(self, words, stream, scratch):
+        """Encode ``words`` into ``stream``; ``scratch`` holds the status
+        words and the length after them, as ``codec_cuda._encode`` sizes it."""
+        from . import codec_cuda
+
+        fn, plan = self._entry("encode", words.shape, words.dtype)
+        status = scratch.data_ptr()
+        codec_cuda._launch(fn, plan.index, words.data_ptr(), *plan.args, stream.data_ptr(), status,
+                           status + 4 * (scratch.numel() - 1))
 
     def decode(self, stream, out):
-        import torch
+        from . import codec_cuda
 
-        from .codec_cuda import _extents
-        from .codec_torch import HC
-
-        cs = torch.cuda.current_stream().cuda_stream
-        bits = 8 * out.element_size()
-        if out.dim() == 1:
-            n = out.numel()
-            err = getattr(self.lib, f"ndzip_decode_fp{bits}")(stream.data_ptr(), stream.numel(), n // HC, n % HC,
-                                                              out.data_ptr(), cs)
-        else:
-            err = getattr(self.lib, f"ndzip_decode_fp{bits}_nd")(stream.data_ptr(), stream.numel(), out.dim(),
-                                                                 *_extents(out.shape), out.data_ptr(), cs)
-        if err:
-            raise RuntimeError(f"{self.name}: decode failed with CUDA error {err}")
+        fn, plan = self._entry("decode", out.shape, out.dtype)
+        codec_cuda._launch(fn, plan.index, stream.data_ptr(), stream.numel(), *plan.args, out.data_ptr())
 
 
 def _us_of_launches(fn, reps: int) -> list[float]:
@@ -146,13 +140,12 @@ def time_variants(dirs, shapes, reps: int, rounds: int, ptxas: list[str], dtype:
         del x
         num_hc = fmt.num_hypercubes(shape)
         bound = fmt.compressed_bound_u32(shape, 8 * words.element_size())
-        # scratch: the status words of a one-pass encoder or the lengths of a three-pass one
-        scratch = torch.empty(num_hc + 1, dtype=torch.int64, device=dev)
-        length = torch.zeros((), dtype=torch.int32, device=dev)
+        scratch = torch.empty(2 * (num_hc + 1) + 1, dtype=torch.int32, device=dev)
+        length = scratch[-1]
         first, out = None, torch.empty_like(words)
         for v in variants:
             stream = torch.full((bound,), -1, dtype=torch.int32, device=dev)
-            v.encode(words, stream, scratch, length)
+            v.encode(words, stream, scratch)
             L = int(length)
             if first is None:
                 first = stream[:L].clone()
@@ -166,18 +159,22 @@ def time_variants(dirs, shapes, reps: int, rounds: int, ptxas: list[str], dtype:
         times = {(v.name, what): [] for v in variants for what in ("encode", "decode")}
         for _ in range(rounds + 1):  # the first round warms up
             for v in variants:
-                for what, fn in (("encode", lambda v=v: v.encode(words, stream, scratch, length)),
+                for what, fn in (("encode", lambda v=v: v.encode(words, stream, scratch)),
                                  ("decode", lambda v=v: v.decode(first, out))):
                     times[v.name, what].append(_us_of_launches(fn, reps))
         label = "x".join(map(str, shape)) + (" fp64" if dtype == "float64" else "")
+        moved = n * words.element_size() + 4 * first.numel()  # input or output, and the stream, once each
+        bound_us = moved / HBM_BYTES_PER_S * 1e6
         for (name, what), per_round in times.items():
             every = [us for one_round in per_round[1:] for us in one_round]
-            print(f"[time] {label} {what} {name}: {statistics.median(every):.2f} us a launch (median of {rounds} "
+            median = statistics.median(every)
+            print(f"[time] {label} {what} {name}: {median:.2f} us a launch (median of {rounds} "
                   f"rounds of {reps} launches back to back; rounds "
                   f"{' '.join(f'{statistics.median(r):.2f}' for r in per_round[1:])}; least {min(every):.2f}, "
                   f"greatest {max(every):.2f}; the first launch of each round "
-                  f"{' '.join(f'{r[0]:.2f}' for r in per_round[1:])}); ratio {4 * first.numel() / (n * words.element_size()):.4f} "
-                  f"on {card}",
+                  f"{' '.join(f'{r[0]:.2f}' for r in per_round[1:])}); ratio {4 * first.numel() / (n * words.element_size()):.4f}; "
+                  f"{moved / 1e6:.1f} MB in + out, bound {bound_us:.2f} us at {HBM_BYTES_PER_S / 1e12:.2f} TB/s, "
+                  f"bound / median {bound_us / median:.1%} on {card}",
                   flush=True)
         del words, stream, out, first
         torch.cuda.empty_cache()

@@ -1,7 +1,9 @@
 """The port's public API (``ndzip_tpu_torch.api``): factories, offloader,
 requirements, backend resolution; the cases of tests/test_api.py that apply
 to the port. Streams are held to ``golden`` byte for byte. On a card (marker
-``cuda``): the Offloader's device timing."""
+``cuda``): an Offloader and ``ndzip_tpu_torch.compress`` given no backend
+take the card, and the Offloader's device timing, whose readings lie within
+``DEVICE_TIMING_BAND`` of ``measure()``'s median."""
 
 import numpy as np
 import pytest
@@ -11,7 +13,8 @@ torch = pytest.importorskip("torch")
 import ndzip_tpu_torch as nt  # noqa: E402
 from ndzip_tpu import format as fmt  # noqa: E402
 from ndzip_tpu import golden, native  # noqa: E402
-from ndzip_tpu_torch import api  # noqa: E402
+from ndzip_tpu_torch import api, bench, codec_cuda, utils  # noqa: E402
+from torch_cases import normal  # noqa: E402
 
 HOST_BACKENDS = ["golden", "cpu", "torch"]
 
@@ -244,3 +247,63 @@ def test_cuda_offloader_device_timing(cuda, dtype):
     assert off.timing.decompress_ns > 0 and out.tobytes() == data.tobytes()
     timing = off.measure(data)
     assert timing.compress_ns > 0 and timing.decompress_ns > 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("entry", ["Offloader", "ndzip_tpu_torch.compress"])
+def test_cuda_no_backend_takes_the_card(cuda, monkeypatch, entry):
+    """Given no backend and no NDZIP_TORCH_BACKEND, the entry points launch
+    the card's one encode and one decode kernel and no other (counted from
+    0), and their stream is golden's."""
+    monkeypatch.delenv(api.BACKEND_ENV, raising=False)
+    data = normal(2**20, 0)
+    torch.cuda.synchronize()
+    for k in codec_cuda.LAUNCHES:
+        codec_cuda.LAUNCHES[k] = 0
+    if entry == "Offloader":
+        off = api.Offloader(np.float32, 1)
+        assert off.backend == "cuda"
+        stream, words = off.compress(data)
+        out = off.decompress(stream, data.shape)
+    else:
+        stream, words = nt.compress(data)
+        out = nt.decompress(stream, data.shape, np.float32)
+    torch.cuda.synchronize()
+    assert {k: n for k, n in codec_cuda.LAUNCHES.items() if n} == {"encode": 1, "decode": 1}
+    g, gl = golden.compress(data)
+    assert words == gl and stream.tobytes() == g.tobytes()
+    assert out.tobytes() == data.tobytes()
+
+
+#: where one device-timed call may lie against measure()'s median of the same device time
+DEVICE_TIMING_BAND = (0.8, 1.25)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("cell", ["fp32_1d", "fp64"])
+def test_cuda_device_timing_lies_in_its_band(cuda, cell):
+    """On bench.py's 2^24 fp32 and 2^23 fp64 cells, two device-timed calls
+    each: every reading above 0 and under the call's wall time, and within
+    DEVICE_TIMING_BAND of ``measure()``'s median, which leaves the host's
+    enqueue out and so may not exceed the CUDA-event median with the host's
+    gaps between launches in."""
+    data = {key: make for key, make, _ in bench.CELLS}[cell](np.random.default_rng(0))
+    off = api.Offloader(data.dtype, 1, "cuda", timing_mode="device")
+    calls = []
+    for _ in range(2):
+        (stream, _), compress_wall = utils.wall_time_ns(lambda: off.compress(data))
+        compress_ns = off.timing.compress_ns
+        out, decompress_wall = utils.wall_time_ns(lambda: off.decompress(stream, data.shape))
+        calls.append((compress_ns, compress_wall, off.timing.decompress_ns, decompress_wall))
+        assert out.tobytes() == data.tobytes()
+    med = off.measure(data)
+    lo, hi = DEVICE_TIMING_BAND
+    for compress_ns, compress_wall, decompress_ns, decompress_wall in calls:
+        assert 0 < compress_ns <= compress_wall and 0 < decompress_ns <= decompress_wall
+        assert lo * med.compress_ns <= compress_ns <= hi * med.compress_ns
+        assert lo * med.decompress_ns <= decompress_ns <= hi * med.decompress_ns
+    x = torch.from_numpy(data).to(cuda)
+    s, length = codec_cuda.compress_device(x)
+    s = s[: int(length)]
+    assert med.compress_ns <= utils.device_time_ms(lambda: codec_cuda.compress_device(x)) * 1e6
+    assert med.decompress_ns <= utils.device_time_ms(lambda: codec_cuda.decompress_device(s, x.shape, x.dtype)) * 1e6

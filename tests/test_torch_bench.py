@@ -2,9 +2,13 @@
 bench.py's (the ratios and the streams, against the JAX package's golden),
 without a card it times nothing and says so in a line that parses, each cell
 is fenced, and the gates run before any timing. On a card (marker ``cuda``)
-the runner measures one small cell."""
+the runner measures one small cell, and ``python -m ndzip_tpu_torch.bench``
+runs as a user runs it: its line names the card, has no error and bench.py's
+ratios, and its headline lies within ``HEADLINE_BAND`` of the decoder's own
+device time and of the CUDA-event median with the host's gaps in."""
 
 import json
+import statistics
 import subprocess
 import sys
 from pathlib import Path
@@ -14,7 +18,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from ndzip_tpu_torch import bench, golden, utils  # noqa: E402
+from ndzip_tpu_torch import bench, golden, utils, variants  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -173,3 +177,34 @@ def test_cuda_runner_on_one_small_cell(cuda, gate):
     assert extra["small_ratio"] == round(words * 4 / data.nbytes, 4)
     assert all(extra[f"small_{w}_gbps"] > 0 for w in ("compress", "decompress", "copy"))
     assert "small_error" not in extra and rows["small"]["ms"]["decompress"] > 0
+
+
+#: where the headline's decompress median may lie: from 0.9 times the decode kernel's device time a
+#: launch (launches back to back, an event between every two) to 1.25 times the CUDA-event median of
+#: the same call with the host's gaps in
+HEADLINE_BAND = (0.9, 1.25)
+
+
+@pytest.mark.cuda
+def test_cuda_bench_as_a_user_runs_it(cuda):
+    proc = subprocess.run([sys.executable, "-m", "ndzip_tpu_torch.bench"], cwd=ROOT, capture_output=True,
+                          text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    line = json.loads(proc.stdout.strip().splitlines()[-1])
+    extra = line["extra"]
+    assert not [k for k in line | extra if k.endswith("error")], proc.stderr
+    assert extra["backend"] == "cuda" and extra["device"] == utils.card() and line["value"] > 0
+    assert {k: extra[f"{k}_ratio"] for k in BENCH_PY_RATIOS} == BENCH_PY_RATIOS
+
+    data = bench.fp32_1d(np.random.default_rng(0))
+    x = torch.from_numpy(data).to(cuda)
+    stream, length = bench.compress_device(x)
+    s = stream[: int(length)]
+
+    def decode():
+        return bench.decompress_device(s, x.shape, x.dtype)
+
+    head_ms = data.nbytes / (line["value"] * 1e9) * 1e3
+    kernel_ms = statistics.median(variants._us_of_launches(decode, bench.REPS)) * 1e-3
+    host_ms = utils.device_time_ms(decode, bench.REPS)
+    assert HEADLINE_BAND[0] * kernel_ms <= head_ms <= HEADLINE_BAND[1] * host_ms, (kernel_ms, head_ms, host_ms)

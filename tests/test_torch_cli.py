@@ -2,7 +2,9 @@
 that apply, and byte equality with the JAX package's CLI), ``ubench`` on the
 CPU and ``warm`` without a GPU. The tools run in-process through their
 ``run``/``main`` functions, and as ``python -m`` where a test needs stdin
-and stdout."""
+and stdout. On a card (marker ``cuda``): ``-e cuda`` round trips through
+files, ``warm`` finding the library already built, and ``ubench``
+launching every stage kernel."""
 
 import subprocess
 import sys
@@ -15,7 +17,8 @@ torch = pytest.importorskip("torch")
 
 from ndzip_tpu import cli as jax_cli  # noqa: E402
 from ndzip_tpu import golden, native  # noqa: E402
-from ndzip_tpu_torch import _build, api, cli, ubench, warm  # noqa: E402
+from ndzip_tpu_torch import _build, api, bench, cli, stages, ubench, warm  # noqa: E402
+from torch_cases import fp64_kernel_cases  # noqa: E402
 
 REPO = Path(__file__).resolve().parents[1]
 RNG = np.random.default_rng(78)
@@ -180,3 +183,55 @@ def test_warm_without_nvcc_exits_nonzero(capsys, monkeypatch, tmp_path):
     _build.load.cache_clear()
     assert warm.run(["--shapes", "4096"]) != 0
     assert "nvcc not found" in capsys.readouterr().err
+
+
+# ------------------------------------------------------------ on a card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+CUDA_CLI_CASES = {
+    "CESM 1800x3600 fp32": lambda: bench.cesm(np.random.default_rng(0)),
+    "fp64 3d border (17,32,129)": lambda: fp64_kernel_cases()["3d odd minor extent (17,32,129)"],
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(CUDA_CLI_CASES))
+def test_cuda_cli_round_trip_files(cuda, tmp_path, label):
+    """``-e cuda`` through files: the .ndz file is golden's stream, the
+    decompressed file the input."""
+    data = CUDA_CLI_CASES[label]()
+    raw, comp, back = tmp_path / "in.raw", tmp_path / "out.ndz", tmp_path / "back.raw"
+    raw.write_bytes(data.tobytes())
+    assert cli.run(shape_flags(data) + ["-e", "cuda", "-i", str(raw), "-o", str(comp)]) == 0
+    assert comp.read_bytes() == golden.compress(data)[0].tobytes()
+    assert cli.run(["-d"] + shape_flags(data) + ["-e", "cuda", "-i", str(comp), "-o", str(back)]) == 0
+    assert back.read_bytes() == raw.read_bytes()
+
+
+@pytest.mark.cuda
+def test_cuda_warm_finds_the_built_library(cuda, capsys):
+    lib = _build.build()
+    built = lib.stat().st_mtime_ns
+    assert warm.run(["--shapes", "16777216", "1800x3600", "--dtype", "float", "double"]) == 0
+    err = capsys.readouterr().err
+    assert f"kernel library {lib.name}: found" in err and "MISMATCH" not in err
+    assert err.count("warmed ") == 4
+    assert lib.stat().st_mtime_ns == built
+
+
+@pytest.mark.cuda
+def test_cuda_ubench_launches_every_stage_kernel(cuda, capsys):
+    for k in stages.LAUNCHES:
+        stages.LAUNCHES[k] = 0
+    for dims, dtype in ((1, "float"), (2, "float"), (3, "float"), (3, "double")):
+        assert ubench.main(["--mb", "4", "--dims", str(dims), "--dtype", dtype]) == 0
+    torch.cuda.synchronize()
+    assert all(stages.LAUNCHES.values()), stages.LAUNCHES
+    assert "GB/s" in capsys.readouterr().out

@@ -12,19 +12,12 @@ import ndzip_tpu_torch as nt  # noqa: E402
 from ndzip_tpu import codec_pallas, golden  # noqa: E402
 from ndzip_tpu import format as fmt  # noqa: E402
 from ndzip_tpu_torch import interop  # noqa: E402
+from torch_cases import normal  # noqa: E402
 
 
 @pytest.fixture(autouse=True)
 def interpret(monkeypatch):
     monkeypatch.setattr(codec_pallas, "INTERPRET", True)
-
-
-def normal(n, seed):
-    """tests/test_pallas.py's data: normal values, a zero run, a repeated run."""
-    data = np.random.default_rng(seed).standard_normal(n).astype(np.float32)
-    data[:200] = 0
-    data[300:340] = data[299]
-    return data
 
 
 def special_floats(n, seed):

@@ -3,7 +3,12 @@ against ndzip_tpu.golden and the JAX package's Pallas codec in interpret
 mode, exact: stream bytes, lengths in u32 words (``compress_device``) and in
 u64 words (``compress``), bit-exact round trips, decodes that do not depend
 on what lies past the stream's length, cross-decodes both ways, and the word
-views in and out."""
+views in and out.
+
+On a card (marker ``cuda``; the Pallas codec is imported only by the test
+that uses it, so the file runs where JAX is not installed): the public
+paths of both profiles at full size, up to the cells past the L2 and past
+2^31 bytes, against the plain version on the card."""
 
 import numpy as np
 import pytest
@@ -13,7 +18,8 @@ torch = pytest.importorskip("torch")
 import ndzip_tpu_torch as nt  # noqa: E402
 from ndzip_tpu import golden  # noqa: E402
 from ndzip_tpu import format as fmt  # noqa: E402
-from ndzip_tpu_torch import interop  # noqa: E402
+from ndzip_tpu_torch import codec_cuda, codec_torch, interop  # noqa: E402
+from torch_cases import normal  # noqa: E402
 
 
 @pytest.fixture
@@ -35,17 +41,8 @@ SHAPES64 = {
 }
 
 
-def normal(shape, seed):
-    """tests/test_pallas.py's data: normal values, a zero run, a repeated run."""
-    data = np.random.default_rng(seed).standard_normal(shape)
-    flat = data.reshape(-1)
-    flat[:200] = 0
-    flat[300:340] = flat[299]
-    return data
-
-
 def special_floats(shape, seed):
-    data = normal(shape, seed)
+    data = normal(shape, seed, np.float64)
     flat = data.reshape(-1)
     flat[[5, 4100, 9000]] = np.nan
     flat[[9, 4103]] = np.array([0x7FF0000000000001, 0xFFF80000DEADBEEF], np.uint64).view(np.float64)
@@ -60,7 +57,7 @@ def random_bits(shape, seed):
     return np.random.default_rng(seed).integers(0, 2**64, shape, dtype=np.uint64).view(np.float64)
 
 
-CASES = {label: (lambda shape=shape, seed=seed: normal(shape, seed))
+CASES = {label: (lambda shape=shape, seed=seed: normal(shape, seed, np.float64))
          for seed, (label, shape) in enumerate(SHAPES64.items())}
 CASES.update({
     "1d zeros": lambda: np.zeros(4096 * 8),
@@ -70,7 +67,7 @@ CASES.update({
     "1d special floats": lambda: special_floats(4096 * 8 + 37, 22),
     "3d special floats": lambda: special_floats((32, 32, 48), 23),
     "1d all border": lambda: np.random.default_rng(24).standard_normal(100),
-    "2d all border": lambda: normal((63, 100), 25),
+    "2d all border": lambda: normal((63, 100), 25, np.float64),
 })
 
 #: the shapes whose streams the Pallas codec decodes and makes in interpret mode
@@ -118,7 +115,7 @@ def test_cross_decodes_with_pallas(pallas, label):
 
 @pytest.mark.parametrize("shape", [(4096 * 3 + 1,), (130, 70), (17, 32, 129)], ids=["1d", "2d", "3d"])
 def test_word_views_in_and_out(shape):
-    data = normal(shape, 30)
+    data = normal(shape, 30, np.float64)
     words = torch.from_numpy(data.view(np.int64))
     stream, length = nt.compress_device(words)
     assert interop.stream_to_numpy(stream, length).tobytes() == golden.compress(data)[0].tobytes()
@@ -138,7 +135,7 @@ def test_uint64_tensor_compresses_as_its_words():
 
 
 def test_odd_length_stream_is_refused():
-    data = normal(4096 * 3 + 1, 32)
+    data = normal(4096 * 3 + 1, 32, np.float64)
     stream, length = nt.compress_device(torch.from_numpy(data))
     with pytest.raises(ValueError, match="whole number of u64 words"):
         nt.decompress_device(stream[: int(length) - 1], data.shape, torch.float64)
@@ -164,7 +161,7 @@ def cube64(shape, seed):
             + 1e-3 * np.random.default_rng(seed).standard_normal(shape))
 
 
-#: chip_smoke.py's cells past the L2 at a reduced depth, each with its block and border structure (data,
+#: the cells past the L2 of FULL_CELLS at a reduced depth, each with its block and border structure (data,
 #: blocks, border elements); the fp32 2D cell stands here beside the fp64 ones, as one slice
 SLICE_CELLS = {
     # 2d_1gib, fp32 16384x16384: 64x64 blocks, no border, 256-byte rows
@@ -197,3 +194,72 @@ def test_slice_cells_at_reduced_depth_equal_golden(label):
     assert out.numpy().tobytes() == data.tobytes()
     back = api.make_decompressor(data.dtype, data.ndim, "torch").decompress(g, data.shape)
     assert back.dtype == data.dtype and back.tobytes() == data.tobytes()
+
+
+# ------------------------------------------------------------ on a card
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def on_card(shape, dtype, dev):
+    """The formulas of line64, field2d and cube64 for 1D, 2D and 3D, in
+    ``dtype`` and made on the card from a ``torch.Generator`` seeded with 0."""
+    gen = torch.Generator(device=dev).manual_seed(0)
+    if len(shape) == 1:
+        d = torch.sin(torch.arange(shape[0], dtype=dtype, device=dev) * 1e-4)
+    elif len(shape) == 2:
+        y, x = (torch.linspace(0, span, e, dtype=dtype, device=dev) for span, e in zip((11.0, 7.0), shape))
+        d = torch.sin(y)[:, None] * torch.cos(x)[None, :]
+    else:
+        z, y, x = (torch.linspace(0, 9.0, e, dtype=dtype, device=dev) for e in shape)
+        d = torch.sin(z)[:, None, None] * torch.cos(y)[None, :, None] * torch.sin(2 * x)[None, None, :]
+    return d.add_(torch.randn(shape, dtype=dtype, device=dev, generator=gen).mul_(1e-3))
+
+
+#: the public paths at full size: bench.py's cells (fp32 2^24, CESM, 256^3 and 512x512x2048, fp64 2^23
+#: and 512^3), the 1D formula at 2^28 + 17 fp32 and 2^27 + 17 fp64, and the cells past the L2 (B3/B4
+#: in 2D at 1 GiB without a border; B6/B8 in 2D, B5/B7 and B6/B8 in 3D past 2^31 bytes, with borders)
+FULL_CELLS = {
+    "fp32 2^24": ((2**24,), torch.float32),
+    "fp32 2^28+17": ((2**28 + 17,), torch.float32),
+    "fp32 CESM 1800x3600": ((1800, 3600), torch.float32),
+    "fp32 256^3": ((256, 256, 256), torch.float32),
+    "fp32 512x512x2048": ((512, 512, 2048), torch.float32),
+    "2d_1gib fp32 16384x16384": ((16384, 16384), torch.float32),
+    "fp64 2^23": ((2**23,), torch.float64),
+    "fp64 2^27+17": ((2**27 + 17,), torch.float64),
+    "fp64 512^3": ((512, 512, 512), torch.float64),
+    "2d64_2gib fp64 16400x16400": ((16400, 16400), torch.float64),
+    "1d64_2gib fp64 2^28+17": ((2**28 + 17,), torch.float64),
+    "3d64_2gib fp64 512x512x1036": ((512, 512, 1036), torch.float64),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(FULL_CELLS))
+def test_cuda_full_size_cells(cuda, label):
+    """compress_device, then decompress_device on ``stream[:length]``: the
+    cell launches its one encode and one decode kernel and no other codec
+    kernel (counted from 0 just before), the stream is the plain version's
+    on the card word for word, and the round trip is bit-exact."""
+    shape, dtype = FULL_CELLS[label]
+    x = on_card(shape, dtype, cuda)
+    torch.cuda.synchronize()
+    for k in codec_cuda.LAUNCHES:
+        codec_cuda.LAUNCHES[k] = 0
+    stream, length = nt.compress_device(x)
+    L = int(length)
+    out = nt.decompress_device(stream[:L], shape, dtype)
+    torch.cuda.synchronize()
+    suffix = ("64" if dtype == torch.float64 else "") + ("_nd" if len(shape) > 1 else "")
+    assert {k: n for k, n in codec_cuda.LAUNCHES.items() if n} == {"encode" + suffix: 1, "decode" + suffix: 1}
+    words = codec_torch.as_words(x)
+    assert torch.equal(codec_torch.as_words(out), words)
+    del out
+    plain, plain_length = codec_torch.encode(words)
+    assert int(plain_length) == L and torch.equal(plain[:L], stream[:L])

@@ -22,6 +22,7 @@ import ndzip_tpu_torch as nt  # noqa: E402
 from ndzip_tpu import format as fmt  # noqa: E402
 from ndzip_tpu import golden  # noqa: E402
 from ndzip_tpu_torch import interop  # noqa: E402
+from torch_cases import normal  # noqa: E402
 
 
 @pytest.fixture
@@ -43,15 +44,6 @@ SHAPES = {
     "2d all border": (63, 100),
     "3d all border": (15, 16, 200),
 }
-
-
-def normal(shape, seed):
-    """tests/test_pallas.py's data: normal values, a zero run, a repeated run."""
-    data = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
-    flat = data.reshape(-1)
-    flat[:200] = 0
-    flat[300:340] = flat[299]
-    return data
 
 
 def special_floats(shape, seed):

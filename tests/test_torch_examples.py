@@ -1,7 +1,8 @@
 """The port's walkthroughs (examples/torch/) must stay runnable: each runs
 with ``--cpu``, the plain PyTorch path, as a subprocess and prints ``OK``,
 as tests/test_examples.py does for the JAX package's. Without ``--cpu`` and
-without a GPU each stops with an error instead of falling back."""
+without a GPU each stops with an error instead of falling back; on a card
+(marker ``cuda``) the device-resident walkthrough runs there."""
 
 import subprocess
 import sys
@@ -35,3 +36,14 @@ def test_example_without_a_gpu_does_not_fall_back():
                          capture_output=True, text=True, timeout=300, cwd=REPO)
     assert res.returncode != 0 and "OK" not in res.stdout
     assert "pass --cpu" in res.stderr
+
+
+@pytest.mark.cuda
+def test_cuda_device_resident_example_runs_on_the_card():
+    torch = pytest.importorskip("torch")
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    res = subprocess.run([sys.executable, str(REPO / "examples" / "torch" / "02_device_resident.py")],
+                         capture_output=True, text=True, timeout=300, cwd=REPO)
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.strip().splitlines()[-1] == "OK"

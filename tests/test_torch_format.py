@@ -1,8 +1,9 @@
 """The port's own copies of the numpy-only modules (``format``, ``golden``,
 ``io``, ``native``) against the JAX package's, exact equality on the same
 inputs from a numpy seed; and the rule that the port, its walkthroughs
-(``examples/torch/``) and ``chip_smoke.py`` import nothing of ``ndzip_tpu``
-and no JAX, held by a walk of their syntax trees."""
+(``examples/torch/``) and the tests' data module ``tests/torch_cases.py``
+import nothing of ``ndzip_tpu`` and no JAX, held by a walk of their syntax
+trees."""
 
 import ast
 import subprocess
@@ -19,6 +20,7 @@ import ndzip_tpu.native as ref_native
 from ndzip_tpu_torch import format as fmt
 from ndzip_tpu_torch import golden, native
 from ndzip_tpu_torch import io as ndz_io
+from torch_cases import normal
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -119,11 +121,8 @@ def test_profiles_equal_the_reference(dtype, dims):
 
 def golden_data(dtype, shape, seed):
     """Normal values with a run of zeros, a constant run and a few special floats."""
-    rng = np.random.default_rng(seed)
-    data = rng.standard_normal(shape).astype(dtype)
+    data = normal(shape, seed, dtype)
     flat = data.reshape(-1)
-    flat[:200] = 0
-    flat[300:340] = flat[299]
     flat[[5, 4100]] = np.nan
     flat[[6, 4101]] = [np.inf, -np.inf]
     flat[7] = -0.0
@@ -222,7 +221,7 @@ def test_native_builds_apart_from_the_reference_library(both_native):
 
 def port_sources():
     return (sorted((ROOT / "ndzip_tpu_torch").rglob("*.py")) + sorted((ROOT / "examples" / "torch").glob("*.py"))
-            + [ROOT / "chip_smoke.py"])
+            + [ROOT / "tests" / "torch_cases.py"])
 
 
 def forbidden_imports(tree):

@@ -9,7 +9,7 @@ route of 2D, B3 (_encode_interior_fp32) and B4 (_decode_interior_fp32) for
 tiled 2D/3D grids, and their fp64 counterparts B5-B8 on int64 words, whose
 JAX versions take (lo, hi) u32 planes (``interop.planes_from_words``). On a
 card (marker ``cuda``, skipped elsewhere): the CUDA kernels against the
-plain versions and against ``golden`` on chip_smoke.py's phase-3 cases,
+plain versions and against ``golden`` on the cases of ``torch_cases``,
 exact: the kernel's stream is golden's byte for byte, and the decode kernel
 gives back the input from golden's stream; the 1D encoder also on inputs
 that stress its look-back, many times and on two CUDA streams, and the 1D
@@ -24,19 +24,20 @@ with ``NDZIP_TPU_TESTS_TPU=1 python -m pytest tests/test_torch_kernels.py -m cud
 GPU machines need not have).
 """
 
+import re
+
 import numpy as np
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import (fp64_kernel_cases, grid_normal, kernel_cases, nd_border_shapes,  # noqa: E402
-                        nd_kernel_cases)
 from ndzip_tpu import format as fmt  # noqa: E402
 from ndzip_tpu import golden  # noqa: E402
 from ndzip_tpu.ops import bitops as ref_bitops  # noqa: E402
 from ndzip_tpu.ops import u64pair  # noqa: E402
-from ndzip_tpu_torch import codec_cuda, codec_torch, interop  # noqa: E402
+from ndzip_tpu_torch import _build, codec_cuda, codec_torch, interop  # noqa: E402
 from ndzip_tpu_torch.ops import bitops  # noqa: E402
+from torch_cases import fp64_kernel_cases, kernel_cases, nd_border_shapes, nd_kernel_cases, normal  # noqa: E402
 
 HC = codec_torch.HC
 
@@ -58,17 +59,41 @@ def cuda():
     return torch.device("cuda")
 
 
-def blocks_of(nb, seed):
-    rng = np.random.default_rng(seed)
-    data = rng.standard_normal(nb * HC).astype(np.float32)
-    data[:200] = 0
-    data[300:340] = data[299]
-    return data.view(np.uint32).reshape(nb, HC)
+#: the twelve codec kernels, each by a part of its mangled name that no other kernel's holds, with
+#: the C function (and its argument) that gives the CTAs of it that one SM holds
+PTXAS_KERNELS = {
+    "5ndzip13encode_blocksE": ("ndzip_encode_fp32_ctas_per_sm", ()),
+    "5ndzip13decode_blocksE": ("ndzip_decode_fp32_ctas_per_sm", ()),
+    "5ndzip16encode_blocks_ndILi2E": ("ndzip_encode_fp32_nd_ctas_per_sm", (2,)),
+    "5ndzip16encode_blocks_ndILi3E": ("ndzip_encode_fp32_nd_ctas_per_sm", (3,)),
+    "5ndzip16decode_blocks_ndILi2E": ("ndzip_decode_fp32_nd_ctas_per_sm", (2,)),
+    "5ndzip16decode_blocks_ndILi3E": ("ndzip_decode_fp32_nd_ctas_per_sm", (3,)),
+    "5ndzip15encode_blocks64E": ("ndzip_encode_fp64_ctas_per_sm", ()),
+    "5ndzip18encode_blocks64_ndILi2E": ("ndzip_encode_fp64_nd_ctas_per_sm", (2,)),
+    "5ndzip18encode_blocks64_ndILi3E": ("ndzip_encode_fp64_nd_ctas_per_sm", (3,)),
+    "5ndzip15decode_blocks64E": ("ndzip_decode_fp64_ctas_per_sm", ()),
+    "5ndzip18decode_blocks64_ndILi2E": ("ndzip_decode_fp64_nd_ctas_per_sm", (2,)),
+    "5ndzip18decode_blocks64_ndILi3E": ("ndzip_decode_fp64_nd_ctas_per_sm", (3,)),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel", list(PTXAS_KERNELS))
+def test_cuda_ptxas_reports_each_kernel_once(cuda, kernel):
+    """ptxas -v reports each codec kernel once, at least one CTA of it fits
+    an SM, and the fp64 decoders, whose register bound is set for their
+    shared memory (four CTAs an SM), spill nothing under it."""
+    ctas, args = PTXAS_KERNELS[kernel]
+    lines = _build.ptxas_lines(kernel)
+    assert len(lines) == 1, lines
+    assert getattr(_build.load(), ctas)(*args) >= 1
+    if "decode_blocks64" in kernel:
+        assert re.findall(r"(\d+) bytes spill (?:stores|loads)", lines[0]) == ["0", "0"], lines[0]
 
 
 @pytest.mark.parametrize("nb", [8, 13])
 def test_encode_blocks_ref_matches_pallas(pallas, nb):
-    blocks = blocks_of(nb, seed=nb)
+    blocks = normal((nb, HC), nb).view(np.uint32)
     header, body, lengths = codec_torch.encode_blocks_ref(torch.from_numpy(blocks.view(np.int32)))
 
     G = pallas.G_ENC
@@ -86,7 +111,7 @@ def test_encode_blocks_ref_matches_pallas(pallas, nb):
 
 @pytest.mark.parametrize("nb", [8, 13])
 def test_decode_blocks_ref_matches_pallas(pallas, nb):
-    blocks = blocks_of(nb, seed=100 + nb)
+    blocks = normal((nb, HC), 100 + nb).view(np.uint32)
     stream, _ = golden.compress(blocks.reshape(-1).view(np.float32))
     ours = codec_torch.decode_blocks_ref(torch.from_numpy(stream.view(np.int32)), nb)
 
@@ -218,15 +243,6 @@ def test_cuda_decode_of_a_truncated_stream(cuda, label):
 # ------------------------------------------------------------ 2D/3D
 
 
-def grid_of(shape, seed):
-    """tests/test_pallas.py's data on a grid: normal values, a zero run, a repeated run."""
-    data = np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
-    flat = data.reshape(-1)
-    flat[:200] = 0
-    flat[300:340] = flat[299]
-    return data
-
-
 def as_tensor(words: np.ndarray) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(words).view(np.int32))
 
@@ -247,7 +263,7 @@ def test_block_transform_matches_golden(dims):
 @pytest.mark.parametrize("shape", [(128, 512), (16, 32, 128)])
 def test_encode_nd_matches_pallas_interior(pallas, shape):
     """The plain encode of a tiled grid against B3 (the tiled Pallas encoder)."""
-    data = grid_of(shape, seed=len(shape))
+    data = normal(shape, len(shape))
     words = data.view(np.uint32)
     dims, num_hc = len(shape), fmt.num_hypercubes(shape)
     header, body, _ = codec_torch.encode_blocks_ref(
@@ -265,7 +281,7 @@ def test_encode_nd_matches_pallas_interior(pallas, shape):
 def test_decode_nd_matches_pallas_interior(pallas, shape):
     """The plain decode of a tiled grid against B4 (the tiled Pallas decoder),
     whose starts come in padded-grid order (_padded_block_ids)."""
-    data = grid_of(shape, seed=10 + len(shape))
+    data = normal(shape, 10 + len(shape))
     stream, _ = golden.compress(data)
     dims, num_hc = len(shape), fmt.num_hypercubes(shape)
     out = torch.empty(shape, dtype=torch.int32)
@@ -289,7 +305,7 @@ def test_gather_route_matches_pallas_blocks(pallas):
     """(128, 192): a minor block-grid axis of 3 takes the JAX package's gather
     route into B1 with dims=2; the plain gather and encode give its words."""
     shape = (128, 192)
-    data = grid_of(shape, seed=7)
+    data = normal(shape, 7)
     nb = fmt.num_hypercubes(shape)
     blocks = codec_torch.gather_blocks(as_tensor(data.view(np.uint32)), shape)
     assert np.array_equal(blocks.numpy().view(np.uint32), golden.gather_blocks(data.view(np.uint32)))
@@ -441,7 +457,7 @@ def test_cuda_nd_bordered_grids_are_golden(cuda, label):
     keep it from starting), and unaligned rows with a border on every axis.
     The run ends, the stream is golden's and the round trip is bit-exact."""
     shape = nd_border_shapes()[label]
-    data = grid_normal(np.random.default_rng(0), shape)
+    data = normal(shape, 0)
     g_stream, g_length = golden.compress(data)
     x = torch.from_numpy(data).to(cuda)
     for _ in range(3):
@@ -455,15 +471,6 @@ def test_cuda_nd_bordered_grids_are_golden(cuda, label):
 
 
 # ------------------------------------------------------------ fp64 (B5-B8)
-
-
-def words64_of(shape, seed):
-    """tests/test_pallas.py's fp64 data as uint64 words."""
-    data = np.random.default_rng(seed).standard_normal(shape)
-    flat = data.reshape(-1)
-    flat[:200] = 0
-    flat[300:340] = flat[299]
-    return data.view(np.uint64)
 
 
 def as_tensor64(words: np.ndarray) -> torch.Tensor:
@@ -524,7 +531,7 @@ def test_transpose_bits_int64_matches_jax_package():
 @pytest.mark.parametrize("nb", [8, 13])
 def test_encode_blocks_ref_fp64_matches_pallas(pallas, nb):
     """The plain fp64 encode against B5, fed the words as (lo, hi) planes."""
-    blocks = words64_of((nb, HC), seed=nb)
+    blocks = normal((nb, HC), nb, np.float64).view(np.uint64)
     header, body, lengths = codec_torch.encode_blocks_ref(as_tensor64(blocks))
 
     G = pallas.G_ENC
@@ -545,7 +552,7 @@ def test_encode_blocks_ref_fp64_matches_pallas(pallas, nb):
 def test_decode_blocks_ref_fp64_matches_pallas(pallas, nb):
     """The plain fp64 decode against B7, whose starts count u64 words from
     the stream's start, padded to a multiple of G_DEC64 with the last one."""
-    blocks = words64_of((nb, HC), seed=100 + nb)
+    blocks = normal((nb, HC), 100 + nb, np.float64).view(np.uint64)
     stream, _ = golden.compress(blocks.reshape(-1).view(np.float64))
     ours = codec_torch.decode_blocks_ref(torch.from_numpy(stream.view(np.int32)), nb, 1, 64)
 
@@ -562,7 +569,7 @@ def test_decode_blocks_ref_fp64_matches_pallas(pallas, nb):
 @pytest.mark.parametrize("shape", [(128, 512), (16, 32, 128)])
 def test_encode_nd_fp64_matches_pallas_interior(pallas, shape):
     """The plain encode of a tiled fp64 grid against B6."""
-    words = words64_of(shape, seed=len(shape))
+    words = normal(shape, len(shape), np.float64).view(np.uint64)
     dims, num_hc = len(shape), fmt.num_hypercubes(shape)
     header, body, _ = codec_torch.encode_blocks_ref(
         codec_torch.gather_blocks(as_tensor64(words), shape), dims)
@@ -581,7 +588,7 @@ def test_encode_nd_fp64_matches_pallas_interior(pallas, shape):
 def test_decode_nd_fp64_matches_pallas_interior(pallas, shape):
     """The plain decode of a tiled fp64 grid against B8, whose starts come in
     padded-grid order (_padded_block_ids)."""
-    words = words64_of(shape, seed=10 + len(shape))
+    words = normal(shape, 10 + len(shape), np.float64).view(np.uint64)
     stream, _ = golden.compress(words.view(np.float64))
     dims, num_hc = len(shape), fmt.num_hypercubes(shape)
     out = torch.empty(shape, dtype=torch.int64)
@@ -646,7 +653,7 @@ def lookback64_cases():
     1085 border CTAs, more than the card holds at once."""
     rng = np.random.default_rng(12)
 
-    def normal(shape):
+    def zero_run(shape):
         d = rng.standard_normal(shape)
         d.reshape(-1)[:200] = 0
         return d
@@ -654,9 +661,9 @@ def lookback64_cases():
     return {
         "1d all zeros, 2048 blocks + 17": np.zeros(HC * 2048 + 17),
         "1d random bits, 2048 blocks + 17": rng.integers(0, 2**64, HC * 2048 + 17, dtype=np.uint64).view(np.float64),
-        "1d 3 blocks + 4095": normal(HC * 3 + 4095),
-        "2d border on both axes (4100, 1030)": normal((4100, 1030)),
-        "3d border on every axis, 1085 border CTAs (20, 1030, 1030)": normal((20, 1030, 1030)),
+        "1d 3 blocks + 4095": zero_run(HC * 3 + 4095),
+        "2d border on both axes (4100, 1030)": zero_run((4100, 1030)),
+        "3d border on every axis, 1085 border CTAs (20, 1030, 1030)": zero_run((20, 1030, 1030)),
     }
 
 

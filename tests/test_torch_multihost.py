@@ -7,7 +7,9 @@ what it got; the stream that ``gather_stream`` assembles and the file that
 whole grid byte for byte, and the slabs of ``decompress_multihost`` and
 ``decompress_from_file`` must be the input's, bit for bit. Every worker
 imports only ``ndzip_tpu_torch``. Each process has 120 s; on expiry the
-workers are killed and the test fails."""
+workers are killed and the test fails. On a card (marker ``cuda``) two
+workers share ``cuda:0`` and compress their slabs there, over gloo as on the
+CPU (NCCL refuses two ranks on one card)."""
 
 import os
 import socket
@@ -29,7 +31,8 @@ TIMEOUT = 120
 
 WORKER = textwrap.dedent("""
     import os, sys
-    pid, nproc, port, tmp, ndev = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4], int(sys.argv[5])
+    pid, nproc, port, tmp, ndev, device = (int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], sys.argv[4],
+                                           int(sys.argv[5]), sys.argv[6])
     sys.path.insert(0, {repo!r})
     import numpy as np
     import torch.distributed as dist
@@ -37,7 +40,7 @@ WORKER = textwrap.dedent("""
 
     multihost.init(f"localhost:{{port}}", nproc, pid)
     assert dist.get_world_size() == nproc and dist.get_rank() == pid
-    devices = ["cpu"] * ndev
+    devices = [device] * ndev
     full = np.load(os.path.join(tmp, "full.npy"))
     rows = full.shape[0] // nproc
     slab = full[pid * rows: (pid + 1) * rows]
@@ -76,12 +79,13 @@ def _free_port():
         return s.getsockname()[1]
 
 
-def run_workers(script: Path, nproc: int, tmp: Path, ndev: int):
+def run_workers(script: Path, nproc: int, tmp: Path, ndev: int, device: str = "cpu"):
     """Start ``nproc`` workers and wait for each with its own timeout; kill
     them all when one expires. Returns (returncode, output) per worker."""
     port = _free_port()
     env = dict(os.environ)
-    procs = [subprocess.Popen([sys.executable, str(script), str(i), str(nproc), str(port), str(tmp), str(ndev)],
+    procs = [subprocess.Popen([sys.executable, str(script), str(i), str(nproc), str(port), str(tmp), str(ndev),
+                               device],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, env=env)
              for i in range(nproc)]
     results = []
@@ -100,7 +104,34 @@ def run_workers(script: Path, nproc: int, tmp: Path, ndev: int):
 @pytest.mark.parametrize("case,nproc", [("f32_2d", 2), ("f32_2d", 4), ("f64_3d", 2), ("f32_2d_localmesh", 2),
                                         ("f64_3d_odd_localmesh", 2)])
 def test_multihost_bit_exact(tmp_path, case, nproc):
-    rows, dtype, ndev = CASES[case]
+    check_multihost(tmp_path, CASES[case], nproc, "cpu")
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    return "cuda"
+
+
+#: the grids of two processes on the card: a slab's rows, its dtype and its devices on cuda:0
+CUDA_CASES = {
+    "f32_2d": ((1024, 1030), np.float32, 1),
+    "f64_3d": ((128, 128, 129), np.float64, 1),
+    "f64_3d_localmesh": ((64, 48, 33), np.float64, 2),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(CUDA_CASES))
+def test_cuda_multihost_bit_exact(tmp_path, cuda, case):
+    check_multihost(tmp_path, CUDA_CASES[case], 2, cuda)
+
+
+def check_multihost(tmp_path, case, nproc, device):
+    """``nproc`` workers, each on ``ndev`` of ``device``: the gathered stream
+    and the file are golden's, every slab is the input's."""
+    rows, dtype, ndev = case
     shape = (rows[0] * nproc,) + rows[1:]
     full = np.random.default_rng(7).standard_normal(shape).astype(dtype)
     full.reshape(-1)[:500] = 0
@@ -108,7 +139,7 @@ def test_multihost_bit_exact(tmp_path, case, nproc):
     script = tmp_path / "worker.py"
     script.write_text(WORKER)
 
-    for i, (rc, out) in enumerate(run_workers(script, nproc, tmp_path, ndev)):
+    for i, (rc, out) in enumerate(run_workers(script, nproc, tmp_path, ndev, device)):
         assert rc == 0, f"proc {i} failed:\n{out[-3000:]}"
         assert f"proc {i} OK; foreign modules: []" in out, out[-3000:]
 

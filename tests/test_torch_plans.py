@@ -38,16 +38,20 @@ def cold():
     codec_cuda._plan.cache_clear()
 
 
-@pytest.fixture
-def fake_lib(monkeypatch, cold):
-    """The kernels' library as named functions that launch nothing: plans
-    are built on the CPU as on a card."""
+def _stand_ins():
+    """The kernels' library as named functions that launch nothing."""
     def entry(name):
         def fn(*args):
             return 0
         fn.__name__ = name
         return fn
-    lib = types.SimpleNamespace(**{name: entry(name) for name in _build.SIGNATURES})
+    return types.SimpleNamespace(**{name: entry(name) for name in _build.SIGNATURES})
+
+
+@pytest.fixture
+def fake_lib(monkeypatch, cold):
+    """The kernels' library as stand-ins: plans are built on the CPU as on a card."""
+    lib = _stand_ins()
     monkeypatch.setattr(codec_cuda._build, "load", lambda: lib)
     return lib
 
@@ -201,6 +205,30 @@ def test_the_dtype_and_shape_refusals_keep_their_order(fake_lib, call, exc, matc
     with pytest.raises(exc, match=match):
         call()
     assert _counts() == before
+
+
+@pytest.mark.parametrize("label", [label for label, key in PLAN_KEYS.items() if key[3] != "border"])
+def test_a_variant_launches_its_own_entry_point_with_the_plans_arguments(fake_lib, monkeypatch, label):
+    """``variants.Variant`` launches, from its own library, the entry point
+    that the plan names, with the plan's integer arguments where
+    ``codec_cuda._encode``/``_decode`` put them."""
+    from ndzip_tpu_torch import variants
+
+    op, shape, words, _, name, args, _ = PLAN_KEYS[label]
+    own = _stand_ins()
+    monkeypatch.setattr(_build, "load_from", lambda csrc, names=None: own)
+    launched = []
+    monkeypatch.setattr(codec_cuda, "_launch", lambda fn, index, *a: launched.append((fn, index, a)))
+    v = variants.Variant(Path("variant"))
+    grid, stream = torch.zeros(shape, dtype=words), torch.zeros(16, dtype=I32)
+    if op == "encode":
+        scratch = torch.zeros(2 * (fmt.num_hypercubes(shape) + 1) + 1, dtype=I32)
+        v.encode(grid, stream, scratch)
+        want = (grid.data_ptr(), *args, stream.data_ptr(), scratch.data_ptr(), scratch[-1].data_ptr())
+    else:
+        v.decode(stream, grid)
+        want = (stream.data_ptr(), stream.numel(), *args, grid.data_ptr())
+    assert launched == [(getattr(own, name), 0, want)]
 
 
 def test_the_module_imports_where_torch_has_no_raw_stream_call():

@@ -22,7 +22,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from ndzip_tpu import golden  # noqa: E402
-from ndzip_tpu_torch import api, cli  # noqa: E402
+from ndzip_tpu_torch import api, cli, codec_cuda  # noqa: E402
 from ndzip_tpu_torch import format as fmt  # noqa: E402
 from ndzip_tpu_torch.parallel import (compress_sharded, compress_sharded_device,  # noqa: E402
                                       decompress_sharded, decompress_sharded_device,
@@ -364,15 +364,24 @@ def test_cuda_sharded_fp64_pad_entries(cuda, shape, n):
 @pytest.mark.cuda
 @pytest.mark.parametrize("shape,dtype", SHAPES + UNEVEN, ids=str)
 def test_cuda_sharded_device_resident(cuda, shape, dtype):
+    """The stream is golden's and the slabs the input's, with one encode and
+    one decode launch for each shard that owns a block row."""
     data = make_data(shape, dtype, 18)
     expect, _ = golden.compress(data)
     x = torch.from_numpy(data).to("cuda")
+    torch.cuda.synchronize()
+    for k in codec_cuda.LAUNCHES:
+        codec_cuda.LAUNCHES[k] = 0
     stream, length = compress_sharded_device(x, cuda)
     assert stream.is_cuda and length.is_cuda
     length = int(length)
     assert stream[:length].cpu().numpy().tobytes() == expect.tobytes()
     slabs = decompress_sharded_device(stream[:length], shape, dtype, cuda)
     assert all(s.is_cuda for s in slabs) and torch.equal(torch.cat(slabs).view(torch.uint8), x.view(torch.uint8))
+    shards = sum(r0 < r1 for r0, r1 in sharded._shard_grid(shape, len(cuda)))
+    suffix = ("64" if dtype == np.float64 else "") + ("_nd" if len(shape) > 1 else "")
+    assert {k: n for k, n in codec_cuda.LAUNCHES.items() if n} == {"encode" + suffix: shards,
+                                                                    "decode" + suffix: shards}
 
 
 @pytest.mark.cuda

@@ -12,7 +12,7 @@ placement stages (P1) against ``golden.encode_blocks_dense`` and the floor's
 definition (the probe's own output overlaps by design and is no
 reference); ``codec_torch.encode_blocks_dense`` against golden. On a card
 (marker ``cuda``, skipped elsewhere): each stage kernel against its plain
-version on chip_smoke.py's phase-3 cases and on ubench's 64 MiB working
+version on the cases of ``torch_cases`` and on ubench's 64 MiB working
 sets, exact.
 """
 
@@ -24,10 +24,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from chip_smoke import fp64_kernel_cases, kernel_cases, nd_kernel_cases  # noqa: E402
 from ndzip_tpu import format as fmt  # noqa: E402
 from ndzip_tpu import golden  # noqa: E402
 from ndzip_tpu_torch import codec_torch, stages  # noqa: E402
+from torch_cases import fp64_kernel_cases, kernel_cases, nd_kernel_cases  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 HC = codec_torch.HC
@@ -225,7 +225,7 @@ def test_cuda_keep_mask_matches_plain(cuda, fill):
     assert torch.equal(stages.keep_mask(staged, limit), stages.keep_mask_ref(staged, limit))
 
 
-#: chip_smoke.py's 2D/3D cases of both dtypes that hold a whole block
+#: torch_cases' 2D/3D cases of both dtypes that hold a whole block
 GRIDS = {label: data for label, data in list(nd_kernel_cases().items())
          + [(f"fp64 {k}", v) for k, v in fp64_kernel_cases().items()]
          if data.ndim > 1 and fmt.num_hypercubes(data.shape)}
