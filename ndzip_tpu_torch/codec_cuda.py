@@ -53,6 +53,10 @@ the launches of each wrapper, so a run can show that it went through the
 kernels. ``COPIES`` counts the copies the API makes of a caller's tensor
 before a launch: a non-contiguous input made contiguous, a 1D input at a
 16-byte misalignment cloned, an fp64 stream at an odd u32 offset realigned.
+``LOADS3D`` counts the fp32 3D encode launches by the load their blocks
+take, by the kernel's own test: ``tensor_map`` where the grid's base is
+16-byte aligned and its minor extent a multiple of 4 words (one tensor-map
+box a block), else ``rows`` (the row walk).
 
 Spans (``utils.trace``, recorded only while a ``torch.profiler`` records or
 under ``NDZIP_TORCH_VERBOSE``): ``ndzip.compress_device`` and
@@ -83,6 +87,8 @@ LAUNCHES = {"encode": 0, "decode": 0, "encode_nd": 0, "decode_nd": 0,
             "encode64": 0, "decode64": 0, "encode64_nd": 0, "decode64_nd": 0}
 #: copies of a caller's tensor made before a launch, by cause, since the count was last set to 0
 COPIES = {"realign64": 0, "align1d": 0, "contiguous": 0}
+#: fp32 3D encode launches by the load of their blocks, since the count was last set to 0
+LOADS3D = {"tensor_map": 0, "rows": 0}
 
 #: the torch dtypes ``decompress_device`` gives as they are named; others are parsed
 _OUT_DTYPES = {d: d for d in (torch.float32, torch.int32, torch.float64, torch.int64)}
@@ -201,6 +207,8 @@ def _encode(plan: _Plan, words: int):
     status = scratch.data_ptr()
     _launch(plan.fn, plan.index, words, *plan.args, stream.data_ptr(), status, status + 4 * at)
     LAUNCHES[plan.counter] += 1
+    if plan.counter == "encode_nd" and len(plan.shape) == 3:  # csrc/grid_nd.cuh's rows_aligned
+        LOADS3D["tensor_map" if words % 16 == 0 and plan.shape[2] % 4 == 0 else "rows"] += 1
     return stream, scratch[at]
 
 

@@ -391,7 +391,9 @@ __device__ __forceinline__ void encode_run(EncodeRunShared& s, uint64_t b, uint6
 // are one contiguous run, [start, start + length) with start = num_hc +
 // header[b-1] and length = header[b] - header[b-1], so one bulk copy (TMA's
 // 1D form, completing on an mbarrier) brings them in and the heads, the
-// 128-count scan and the rank gather read shared memory.
+// 128-count scan and the rank gather read shared memory. The barrier helpers
+// and the tensor copy serve the 3D encoder's block load too
+// (encode_fp32_nd.cu).
 
 __device__ __forceinline__ void mbarrier_init(uint64_t* bar, uint32_t arrivals) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(shared_address(bar)), "r"(arrivals) : "memory");
@@ -431,6 +433,25 @@ __device__ __forceinline__ void bulk_copy_to_shared(void* dst, const void* src, 
     asm volatile("cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];" ::"r"(
                      shared_address(dst)),
                  "l"(src), "r"(bytes), "r"(shared_address(bar))
+                 : "memory");
+}
+
+// The box of a 3D tensor map whose first element is at (c.x, c.y, c.z),
+// innermost first, to dst in shared memory (128-byte aligned), completing on
+// the barrier. `map` is the map's generic address: a __grid_constant__
+// kernel parameter.
+__device__ __forceinline__ void tensor_copy_to_shared(void* dst, const void* map, uint3 c, uint64_t* bar) {
+    asm volatile(
+        "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1, {%2, %3, %4}], [%5];" ::"r"(
+            shared_address(dst)),
+        "l"(map), "r"(c.x), "r"(c.y), "r"(c.z), "r"(shared_address(bar))
+        : "memory");
+}
+
+// Ask the L2 for the same box, without a copy or a barrier.
+__device__ __forceinline__ void tensor_prefetch_l2(const void* map, uint3 c) {
+    asm volatile("cp.async.bulk.prefetch.tensor.3d.L2.global [%0, {%1, %2, %3}];" ::"l"(map), "r"(c.x), "r"(c.y),
+                 "r"(c.z)
                  : "memory");
 }
 

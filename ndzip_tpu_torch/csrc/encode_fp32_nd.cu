@@ -35,6 +35,19 @@
 //     thread walks 16 words of a column (2D) or of a line along z, less their
 //     neighbours at y - 1 (3D). One pass where the format's order suggests two
 //     or three: 3% of the kernel's time;
+//   * a 3D grid whose rows start 16-byte aligned takes another load
+//     (encode_blocks_nd_box; the same kernel otherwise, and the same stream).
+//     A 3D row is 64 B, so the row walk above spends a 64-bit address, a
+//     load and its latency on every 64 bytes. Instead the thread that draws
+//     the ticket copies the whole 16^3 block as one box of the grid's tensor
+//     map (built on the host for each call) into the run buffer, which lies
+//     unused until the compaction, and asks the L2 for the box kAhead tickets
+//     on with one tensor prefetch: the copy engine makes the 256 row
+//     addresses, and no thread holds a register for the load. When the
+//     box's barrier completes, one pass (difference_box) takes it into the
+//     padded block with the whole transform, a thread on a line along z:
+//     the differences along y from the word 16 before in the box, along x
+//     from the lane before, along z in registers;
 //   * common.cuh's encode_run does the rest as in 1D: the length by OR and
 //     popcount, published at once in the block's status word; the transposes
 //     and the compaction into a second shared buffer; the offset by decoupled
@@ -61,9 +74,14 @@
 //
 // Bound: bytes. Each element is read once, in rows of 256 B (2D) or 64 B
 // (3D), and the stream is written once. Two block buffers take 34 KB of
-// shared memory a CTA, six CTAs an SM. Element and stream offsets are 64-bit.
+// shared memory a CTA, six CTAs an SM (the box lands in one of them).
+// Element and stream offsets are 64-bit.
 // The measurements named here and the variants beside them: PERF.md (2 GiB
 // grids, 512x512x2048 and 16384x32768, on an NVIDIA H100 80GB HBM3, 700.00 W).
+
+#include <cuda.h>  // CUtensorMap and its encoding's types; the function is found at run time
+
+#include <cstddef>
 
 #include "grid_nd.cuh"
 
@@ -109,9 +127,44 @@ __device__ __forceinline__ void difference_yz(uint32_t* x) {
     __syncthreads();
 }
 
+// 3D, from the block as its box left it in shared memory (dense, row-major,
+// no pad) to x in the padded layout, with the whole transform, thread t on the
+// z line at (y, x) = (t / 16, t % 16): each word rotated left by one, less the
+// rotated word 16 before it in the box, its neighbour at y - 1 (the first row
+// stays); those differences less the left neighbour's, from the lane before
+// (the first word of a row stays); those less the ones before them on the
+// line (z), then complement-negative. Every access of a warp touches 32
+// consecutive words, so no bank conflicts on either side. Ends with a barrier.
+__device__ __forceinline__ void difference_box(const uint32_t* box, uint32_t* x) {
+    const int t = threadIdx.x;
+    uint32_t prev = 0;
+#pragma unroll
+    for (int z = 0; z < Blocks<3>::kSide; ++z) {
+        const int i = 256 * z + t;
+        const uint32_t dy = rotl1(box[i]) - (t >= 16 ? rotl1(box[i - 16]) : 0u);
+        const uint32_t left = __shfl_up_sync(kFull, dy, 1);
+        const uint32_t dxy = dy - (t % 16 ? left : 0u);
+        x[pad(i)] = complement_negative(dxy - prev);
+        prev = dxy;
+    }
+    __syncthreads();
+}
+
 // Tickets between a CTA and the block it asks the L2 for: one CTA an SM of an
-// H100 ahead. 66 to 264 measured the same.
+// H100 ahead. 66 to 264 measured the same, for the row walk and for the box.
 constexpr uint32_t kAhead = 132;
+
+// The whole work of border CTA c: its share of the border staged in s.x, then
+// stored where the border starts, after the last block's run.
+__device__ __forceinline__ void encode_border_share(const uint32_t* __restrict__ words, const Border& border,
+                                                    uint64_t c, uint64_t num_hc, uint64_t* status,
+                                                    uint32_t* __restrict__ stream, EncodeRunShared& s) {
+    stage_border(words, border, c, s.x);
+    if (threadIdx.x == 0) s.exclusive = wait_inclusive(status + num_hc - 1);
+    __syncthreads();
+    store_lines(stream + num_hc + s.exclusive + c * kHcSize, s.x,
+                static_cast<int>(border_end(border, c) - c * kHcSize));
+}
 
 template <int Dims>
 __global__ void __launch_bounds__(kThreads)
@@ -130,13 +183,8 @@ encode_blocks_nd(const uint32_t* __restrict__ words, Blocks<Dims> geo, Border bo
     }
     __syncthreads();
     const uint64_t b = s.block;
-    if (b >= num_hc) {  // a border CTA: the border starts after the last block's run
-        const uint64_t c = b - num_hc;
-        stage_border(words, border, c, s.x);
-        if (threadIdx.x == 0) s.exclusive = wait_inclusive(status + num_hc - 1);
-        __syncthreads();
-        store_lines(stream + num_hc + s.exclusive + c * kHcSize, s.x,
-                    static_cast<int>(border_end(border, c) - c * kHcSize));
+    if (b >= num_hc) {
+        encode_border_share(words, border, b - num_hc, num_hc, status, stream, s);
         return;
     }
 
@@ -154,22 +202,102 @@ encode_blocks_nd(const uint32_t* __restrict__ words, Blocks<Dims> geo, Border bo
         *length = static_cast<int32_t>(num_hc + s.exclusive + s.length + border.count);
 }
 
+static_assert(offsetof(EncodeRunShared, run) % 128 == 0, "the box lands in s.run, 128-byte aligned");
+
+// encode_blocks_nd<3> for a grid whose rows start 16-byte aligned, with the
+// block's load and prefetch through the grid's tensor map (encode_nd's
+// box_map): the CTA's block moves into s.run, which lies unused until the
+// compaction, as one 16 KiB box, and difference_box takes it from there into
+// s.x. Border CTAs and everything from s.x on are encode_blocks_nd's. Six
+// CTAs an SM, as there: the bound keeps ptxas under the 42 registers a thread
+// that leaves.
+__global__ void __launch_bounds__(kThreads, 6)
+encode_blocks_nd_box(const __grid_constant__ CUtensorMap map, const uint32_t* __restrict__ words, Blocks<3> geo,
+                     Border border, uint64_t num_hc, uint64_t* status, uint32_t* __restrict__ stream,
+                     int32_t* __restrict__ length) {
+    __shared__ __align__(128) EncodeRunShared s;
+    __shared__ uint64_t full;  // mbarrier: the box has landed
+    // The thread that draws the ticket starts the box's copy and asks the L2
+    // for the box kAhead tickets on.
+    if (threadIdx.x == 0) {
+        s.block = atomicAdd(reinterpret_cast<uint32_t*>(status + num_hc), 1u);
+        if (s.block < num_hc) {
+            mbarrier_init(&full, 1);
+            mbarrier_init_fence();
+            mbarrier_arrive_expect(&full, kHcSize * sizeof(uint32_t));
+            tensor_copy_to_shared(s.run, &map, geo.corner32(s.block), &full);
+            if (s.block + kAhead < num_hc) tensor_prefetch_l2(&map, geo.corner32(s.block + kAhead));
+        }
+    }
+    __syncthreads();
+    const uint64_t b = s.block;
+    if (b >= num_hc) {
+        encode_border_share(words, border, b - num_hc, num_hc, status, stream, s);
+        return;
+    }
+
+    mbarrier_wait(&full, 0);
+    difference_box(s.run, s.x);
+    encode_run(s, b, num_hc, status, stream);
+
+    if (b == num_hc - 1 && threadIdx.x == 0)
+        *length = static_cast<int32_t>(num_hc + s.exclusive + s.length + border.count);
+}
+
+// The tensor map of a 3D grid of (e0, e1, e2) u32 words whose rows start
+// 16-byte aligned (rows_aligned: the map needs a 16-byte aligned base and
+// strides of 16-byte multiples), with a 16^3 box and the L2 asked for whole
+// 128-byte lines, as load_block asks. No element of a block's box lies
+// outside the grid. The driver's cuTensorMapEncodeTiled is looked up once
+// through the runtime, so the library links no -lcuda. Returns 0 or the
+// driver's error.
+inline int box_map(CUtensorMap* map, const uint32_t* grid, uint64_t e0, uint64_t e1, uint64_t e2) {
+    using Encode = decltype(&cuTensorMapEncodeTiled);
+    static const Encode encode = [] {
+        void* fn = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        const cudaError_t err =
+            cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+        const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+        return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<Encode>(fn) : nullptr;
+    }();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t dims[3] = {e2, e1, e0};                   // innermost first
+    const cuuint64_t strides[2] = {4 * e2, 4 * e1 * e2};        // bytes, of axes 1 and 0
+    const cuuint32_t box[3] = {16, 16, 16}, steps[3] = {1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, const_cast<uint32_t*>(grid), dims, strides, box, steps,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
 template <int Dims>
 int encode_nd(const uint32_t* in, uint64_t e0, uint64_t e1, uint64_t e2, uint32_t* out, uint64_t* status,
               int32_t* length, cudaStream_t s) {
     const GridNd<Dims> g(e0, e1, e2);
     const cudaError_t err = cudaMemsetAsync(status, 0, (g.num_hc + 1) * sizeof(uint64_t), s);
     if (err != cudaSuccess) return err;
-    encode_blocks_nd<Dims><<<static_cast<unsigned>(g.num_hc + border_ctas(g.border.count)), kThreads, 0, s>>>(
-        in, g.blocks, g.border, rows_aligned(in, e2), g.num_hc, status, out, length);
+    const auto ctas = static_cast<unsigned>(g.num_hc + border_ctas(g.border.count));
+    const bool vec = rows_aligned(in, e2);
+    if constexpr (Dims == 3) {
+        if (vec) {
+            CUtensorMap map;
+            if (const int bad = box_map(&map, in, e0, e1, e2)) return bad;
+            encode_blocks_nd_box<<<ctas, kThreads, 0, s>>>(map, in, g.blocks, g.border, g.num_hc, status, out,
+                                                            length);
+            return cudaGetLastError();
+        }
+    }
+    encode_blocks_nd<Dims><<<ctas, kThreads, 0, s>>>(in, g.blocks, g.border, vec, g.num_hc, status, out, length);
     return cudaGetLastError();
 }
 
-template <int Dims>
-int encode_nd_ctas_per_sm() {
+template <typename Kernel>
+int encode_ctas_per_sm(Kernel kernel) {
     int ctas = 0;
-    const cudaError_t err =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, encode_blocks_nd<Dims>, kThreads, 0);
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, kThreads, 0);
     return err == cudaSuccess ? ctas : -static_cast<int>(err);
 }
 
@@ -196,7 +324,11 @@ extern "C" int ndzip_encode_fp32_nd(const void* words, int64_t dims, int64_t e0,
 // CTAs of encode_blocks_nd for `dims` (2 or 3) that one SM holds at a time,
 // or minus the CUDA error.
 extern "C" int ndzip_encode_fp32_nd_ctas_per_sm(int64_t dims) {
-    if (dims == 2) return ndzip::encode_nd_ctas_per_sm<2>();
-    if (dims == 3) return ndzip::encode_nd_ctas_per_sm<3>();
+    if (dims == 2) return ndzip::encode_ctas_per_sm(ndzip::encode_blocks_nd<2>);
+    if (dims == 3) return ndzip::encode_ctas_per_sm(ndzip::encode_blocks_nd<3>);
     return -static_cast<int>(cudaErrorInvalidValue);
 }
+
+// CTAs of encode_blocks_nd_box (3D grids whose rows start 16-byte aligned)
+// that one SM holds at a time, or minus the CUDA error.
+extern "C" int ndzip_encode_fp32_nd_box_ctas_per_sm() { return ndzip::encode_ctas_per_sm(ndzip::encode_blocks_nd_box); }

@@ -38,6 +38,14 @@ struct Blocks {
         const uint64_t c1 = Dims == 2 ? q : q % n1, c0 = Dims == 2 ? 0 : q / n1;
         return (c0 * kSide0 * e1 + c1 * kSide) * e2 + static_cast<uint64_t>(c2) * kSide;
     }
+    // Block b's first word as coordinates in the grid, innermost first:
+    // (x, y, z) = (axis 2, axis 1, axis 0), in 32-bit arithmetic. What a
+    // tensor map's box is placed by (3D).
+    __device__ __forceinline__ uint3 corner32(uint32_t b) const {
+        const uint32_t n1 = static_cast<uint32_t>(g1), n2 = static_cast<uint32_t>(g2);
+        const uint32_t q = b / n2;
+        return make_uint3(kSide * (b % n2), kSide * (q % n1), kSide0 * (q / n1));
+    }
     // Offset from a block's first word of the first word of its row r.
     __device__ __forceinline__ uint64_t row(int r) const {
         return Dims == 2 ? r * e2 : (r / kSide) * e1 * e2 + (r % kSide) * e2;
@@ -83,7 +91,10 @@ __device__ __forceinline__ void walk_block(F f) {
 // Load the block whose first word is `block` into x: each word rotated left by
 // one, less its rotated left neighbour in the row (the first word of a row
 // stays): the forward transform's differences along the rows, which commute
-// with those along the other axes, done on the way in. A warp reads whole
+// with those along the other axes, done on the way in. The 2D encoder's load,
+// and the 3D encoder's where rows do not start 16-byte aligned; a 3D grid
+// whose rows do moves each block as one tensor-map box (encode_fp32_nd.cu's
+// encode_blocks_nd_box). A warp reads whole
 // rows: 256 B (2D) or 64 B (3D) runs. With 16-byte loads the neighbour comes
 // from the lane before (a row starts at lane 0 of its 4 or 16 lanes), and the
 // load asks the L2 for the whole 128-byte line: the other half of a 3D row's
@@ -116,7 +127,9 @@ __device__ __forceinline__ void load_block(const uint32_t* __restrict__ block, c
 
 // Ask the L2 for the block whose first word is `block`, one prefetch for
 // each 128-byte piece of a row (two a 2D row; a 3D row's 64 bytes lie in one
-// line): for a block that another CTA will load soon.
+// line): for a block that another CTA will load soon. Beside load_block; the
+// box path asks with one tensor prefetch instead (common.cuh's
+// tensor_prefetch_l2).
 template <int Dims>
 __device__ __forceinline__ void prefetch_block(const uint32_t* block, const Blocks<Dims>& geo) {
     constexpr int kPieces = Dims == 2 ? 2 : 1;

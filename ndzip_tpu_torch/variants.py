@@ -181,6 +181,18 @@ def time_variants(dirs, shapes, reps: int, rounds: int, ptxas: list[str], dtype:
     return 0
 
 
+def sass_by_kernel(text: str) -> dict[str, str]:
+    """``cuobjdump -sass``'s text as each kernel's instructions and their
+    encodings, by its mangled name: the lines that hold a /* ... */ field,
+    each with its runs of blanks made one (cuobjdump pads its columns to the
+    widest instruction of the whole file, so a kernel added to a file would
+    otherwise change every line of the others). What cuobjdump prints
+    between two kernels goes with neither."""
+    parts = re.split(r"^\s*Function : (\S+)\s*$", text, flags=re.M)
+    return {name: "\n".join(" ".join(line.split()) for line in body.splitlines() if "/*" in line)
+            for name, body in zip(parts[1::2], parts[2::2])}
+
+
 def _kernels_sass(nvcc: str, src: Path, tmp: Path) -> dict[str, str]:
     """The SASS of each kernel of one source, by its mangled name."""
     from . import _build
@@ -189,12 +201,8 @@ def _kernels_sass(nvcc: str, src: Path, tmp: Path) -> dict[str, str]:
     cubin = tmp / f"{src.parent.parent.name}_{src.parent.name}_{src.stem}.cubin"
     subprocess.run([nvcc, *flags, "-cubin", "-o", str(cubin), str(src)], check=True, capture_output=True)
     cuobjdump = str(Path(nvcc).with_name("cuobjdump"))
-    text = subprocess.run([cuobjdump, "-sass", str(cubin)], check=True, capture_output=True, text=True).stdout
-    parts = re.split(r"^\s*Function : (\S+)\s*$", text, flags=re.M)
-    # a kernel's instructions and their encodings: the lines that hold a /* ... */ field; what
-    # cuobjdump prints between two kernels goes with neither
-    return {name: "\n".join(line.strip() for line in body.splitlines() if "/*" in line)
-            for name, body in zip(parts[1::2], parts[2::2])}
+    return sass_by_kernel(subprocess.run([cuobjdump, "-sass", str(cubin)], check=True, capture_output=True,
+                                         text=True).stdout)
 
 
 def compare_sass(dir_a: Path, dir_b: Path, same: list[str]) -> int:

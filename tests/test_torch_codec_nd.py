@@ -11,7 +11,12 @@ stage their share before they wait for the last block's sum, give
 bit back, on bordered grids: CESM's 1800x3600 under several seeds and as a
 constant field (the border's first stream word at different offsets in a
 128-byte line), 3D grids bordered on every axis, (20, 1024, 1024), whose
-1024 border CTAs are more than the card holds at once, and thin borders."""
+1024 border CTAs are more than the card holds at once, and thin borders;
+and on 3D grids through both of the encoder's block loads, each counted in
+``codec_cuda.LOADS3D``: one tensor-map box a block where rows start 16-byte
+aligned, the row walk from a view 4 bytes off 16. On the CPU, a numpy model
+of the 3D box path's fused pass, lane by lane, is held to
+``golden.block_transform``."""
 
 import numpy as np
 import pytest
@@ -21,7 +26,7 @@ torch = pytest.importorskip("torch")
 import ndzip_tpu_torch as nt  # noqa: E402
 from ndzip_tpu import format as fmt  # noqa: E402
 from ndzip_tpu import golden  # noqa: E402
-from ndzip_tpu_torch import interop  # noqa: E402
+from ndzip_tpu_torch import codec_cuda, interop  # noqa: E402
 from torch_cases import normal  # noqa: E402
 
 
@@ -142,6 +147,48 @@ def test_word_views_in_and_out(shape):
     assert same_bits(nt.decompress(golden.compress(data)[0], shape, device="cpu"), data)
 
 
+def box_pass(blocks: np.ndarray) -> np.ndarray:
+    """The 3D encoder's fused pass over a block as its tensor-map box leaves
+    it (csrc/encode_fp32_nd.cu's difference_box), lane by lane in numpy:
+    thread t walks the z line at (y, x) = (t // 16, t % 16); each word is
+    rotated left by one, less the rotated word 16 before it in the box (y;
+    none for t < 16), then less what the lane before holds
+    (``__shfl_up_sync`` by 1: lane 0 keeps its own) where x > 0, then less
+    the value before it on the line (z), then complement-negative.
+    ``blocks``: (nb, 4096) uint32 in a block's row-major order."""
+    box = blocks.reshape(-1, 16, 256).astype(np.uint32)  # [block, z, t]
+    t = np.arange(256)
+    rot = (box << np.uint32(1)) | (box >> np.uint32(31))
+    up = np.where(t >= 16, np.roll(rot, 16, axis=2), np.uint32(0))
+    dy = rot - up
+    lane = t % 32
+    shuffled = np.where(lane > 0, np.roll(dy, 1, axis=2), dy)
+    dxy = dy - np.where(t % 16 > 0, shuffled, np.uint32(0))
+    before = np.concatenate([np.zeros_like(dxy[:, :1]), dxy[:, :-1]], axis=1)
+    d = dxy - before
+    return np.where(d >> np.uint32(31) == 1, d ^ np.uint32(0x7FFFFFFF), d).reshape(-1, fmt.HC_SIZE)
+
+
+def _blocks_of(data):
+    return data.view(np.uint32).reshape(-1, fmt.HC_SIZE)
+
+
+BOX_PASS_CASES = {
+    "normal values": lambda: _blocks_of(normal((8, 16, 16, 16), 70)),
+    "random bits": lambda: _blocks_of(random_bits((8, 4096), 71)),
+    "special floats": lambda: _blocks_of(special_floats((8, 4096), 72)),
+    "all-equal blocks": lambda: np.repeat(np.array([0, 1, 0x80000000, 0xFFFFFFFF, 0x3FC00000], np.uint32),
+                                          fmt.HC_SIZE).reshape(-1, fmt.HC_SIZE),
+}
+
+
+@pytest.mark.parametrize("label", list(BOX_PASS_CASES))
+def test_the_box_pass_model_gives_the_forward_transform(label):
+    blocks = BOX_PASS_CASES[label]()
+    with np.errstate(over="ignore"):
+        assert np.array_equal(box_pass(blocks), golden.block_transform(blocks, 3))
+
+
 # ------------------------------------------------------------ on a card
 
 
@@ -183,3 +230,44 @@ def test_border_ctas_on_the_card_match_golden(cuda, label):
     assert interop.stream_to_numpy(stream.cpu(), length.cpu()).tobytes() == g.tobytes()
     out = nt.decompress_device(stream[:length], data.shape)
     assert same_bits(out.cpu().numpy(), data)
+
+
+#: 3D grids and the load the encoder takes for their blocks (``codec_cuda.LOADS3D``): where rows
+#: start 16-byte aligned, one tensor-map box a block (whole blocks alone, bordered on every axis,
+#: 1024 border CTAs, 512^3 as the magrecon cell holds it, special floats, random bits); the same
+#: data from a view whose base lies 4 bytes off 16, the row walk
+LOAD_CASES = {
+    "box (16,16,16)": (lambda: normal((16, 16, 16), 60), 0, "tensor_map"),
+    "box (16,32,128)": (lambda: normal((16, 32, 128), 61), 0, "tensor_map"),
+    "box (48,48,64)": (lambda: normal((48, 48, 64), 62), 0, "tensor_map"),
+    "box 512^3": (lambda: normal((512, 512, 512), 63), 0, "tensor_map"),
+    "box bordered on every axis (33,50,68)": (lambda: normal((33, 50, 68), 64), 0, "tensor_map"),
+    "box 1024 border CTAs (20,1024,1024)": (lambda: normal((20, 1024, 1024), 65), 0, "tensor_map"),
+    "box special floats (32,48,64)": (lambda: special_floats((32, 48, 64), 66), 0, "tensor_map"),
+    "box random bits (32,32,48)": (lambda: random_bits((32, 32, 48), 67), 0, "tensor_map"),
+    "rows, base 4 bytes off 16 (16,32,128)": (lambda: normal((16, 32, 128), 61), 1, "rows"),
+    "rows, base 4 bytes off 16 (33,50,68)": (lambda: normal((33, 50, 68), 64), 1, "rows"),
+    "rows, base 4 bytes off 16, special floats (32,48,64)": (lambda: special_floats((32, 48, 64), 66), 1,
+                                                             "rows"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(LOAD_CASES))
+def test_box_and_row_loads_on_the_card_match_golden(cuda, label):
+    make, offset, load = LOAD_CASES[label]
+    data = make()
+    storage = torch.empty(data.size + offset, dtype=torch.float32, device=cuda)
+    x = storage[offset:].view(data.shape)
+    x.copy_(torch.from_numpy(data))
+    assert x.data_ptr() % 16 == 4 * offset
+    for key in codec_cuda.LOADS3D:
+        codec_cuda.LOADS3D[key] = 0
+    stream, length = nt.compress_device(x)
+    assert codec_cuda.LOADS3D == dict({"tensor_map": 0, "rows": 0}, **{load: 1})
+    g, g_len = golden.compress(data)
+    assert int(length) == g_len
+    assert interop.stream_to_numpy(stream.cpu(), length.cpu()).tobytes() == g.tobytes()
+    out = nt.decompress_device(stream[:length], data.shape)
+    assert same_bits(out.cpu().numpy(), data)
+

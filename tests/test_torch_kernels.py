@@ -59,9 +59,10 @@ def cuda():
     return torch.device("cuda")
 
 
-#: the twelve codec kernels, each by a part of its mangled name that no other kernel's holds, with
+#: the thirteen codec kernels, each by a part of its mangled name that no other kernel's holds, with
 #: the C function (and its argument) that gives the CTAs of it that one SM holds
 PTXAS_KERNELS = {
+    "5ndzip20encode_blocks_nd_boxE": ("ndzip_encode_fp32_nd_box_ctas_per_sm", ()),
     "5ndzip13encode_blocksE": ("ndzip_encode_fp32_ctas_per_sm", ()),
     "5ndzip13decode_blocksE": ("ndzip_decode_fp32_ctas_per_sm", ()),
     "5ndzip16encode_blocks_ndILi2E": ("ndzip_encode_fp32_nd_ctas_per_sm", (2,)),
@@ -81,14 +82,42 @@ PTXAS_KERNELS = {
 @pytest.mark.parametrize("kernel", list(PTXAS_KERNELS))
 def test_cuda_ptxas_reports_each_kernel_once(cuda, kernel):
     """ptxas -v reports each codec kernel once, at least one CTA of it fits
-    an SM, and the fp64 decoders, whose register bound is set for their
+    an SM, the 3D encoder's box path holds six CTAs an SM as its row walk
+    does, and the fp64 decoders, whose register bound is set for their
     shared memory (four CTAs an SM), spill nothing under it."""
     ctas, args = PTXAS_KERNELS[kernel]
     lines = _build.ptxas_lines(kernel)
     assert len(lines) == 1, lines
     assert getattr(_build.load(), ctas)(*args) >= 1
+    if "encode_blocks_nd_box" in kernel:  # the box lands in a buffer the row walk has too: six CTAs, as there
+        assert getattr(_build.load(), ctas)(*args) == _build.load().ndzip_encode_fp32_nd_ctas_per_sm(3) == 6
     if "decode_blocks64" in kernel:
         assert re.findall(r"(\d+) bytes spill (?:stores|loads)", lines[0]) == ["0", "0"], lines[0]
+
+
+def _sass(pad: int, op: str = "IADD3 R4, P0, R2, R6, RZ") -> str:
+    """A ``cuobjdump -sass`` listing of two kernels, its columns padded by ``pad`` blanks."""
+    gap = " " * pad
+    return (f"\tcode for sm_90a\n\t\tFunction : _ZN5ndzip1aEv\n\t.headerflags @\"EF_CUDA_SM90\"\n"
+            f"        /*0000*/                   LDC R1, c[0x0][0x28] ;{gap}   /* 0x00000a00ff017b82 */\n"
+            f"                                                      {gap}   /* 0x000e620000000800 */\n"
+            f"        /*0010*/                   {op} ;{gap}   /* 0x0000000602047210 */\n"
+            f"\t\t..........\n\n\t\tFunction : _ZN5ndzip1bEv\n"
+            f"        /*0000*/                   EXIT ;{gap}   /* 0x000000000000794d */\n")
+
+
+def test_sass_is_compared_without_the_padding_of_its_columns():
+    """``variants sass`` holds a kernel's instructions and encodings, by its
+    mangled name; cuobjdump pads a file's columns to its widest instruction,
+    which a kernel added beside the others widens."""
+    from ndzip_tpu_torch import variants
+
+    narrow = variants.sass_by_kernel(_sass(0))
+    assert sorted(narrow) == ["_ZN5ndzip1aEv", "_ZN5ndzip1bEv"]
+    assert narrow["_ZN5ndzip1aEv"].splitlines()[0] == "/*0000*/ LDC R1, c[0x0][0x28] ; /* 0x00000a00ff017b82 */"
+    assert len(narrow["_ZN5ndzip1aEv"].splitlines()) == 3 and narrow["_ZN5ndzip1bEv"].count("\n") == 0
+    assert variants.sass_by_kernel(_sass(7)) == narrow
+    assert variants.sass_by_kernel(_sass(0, "IADD3 R4, P0, R2, R7, RZ"))["_ZN5ndzip1aEv"] != narrow["_ZN5ndzip1aEv"]
 
 
 @pytest.mark.parametrize("nb", [8, 13])

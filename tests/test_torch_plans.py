@@ -6,7 +6,9 @@ per key and reused, holds what ``format`` says of its shape, and a shape the
 codec refuses raises every time and is never cached; every refusal that
 comes before a launch raises with its message whether the plan is cold or
 warm, and a host tensor builds no plan; the module imports where torch has
-no ``_cuda_getCurrentRawStream``. On a card (marker ``cuda``): B1-B8 from a
+no ``_cuda_getCurrentRawStream``; an encode launch counts in
+``codec_cuda.LOADS3D`` the load the fp32 3D kernel takes for its grid's
+address and minor extent, and no other launch counts there. On a card (marker ``cuda``): B1-B8 from a
 cold and a warm plan give the plain version's streams byte for byte and
 round-trip bit for bit, the per-call refusals hold cold and warm, a call
 inside ``torch.cuda.stream(side)`` runs on ``side``, and ``plans()`` counts
@@ -229,6 +231,45 @@ def test_a_variant_launches_its_own_entry_point_with_the_plans_arguments(fake_li
         v.decode(stream, grid)
         want = (stream.data_ptr(), stream.numel(), *args, grid.data_ptr())
     assert launched == [(getattr(own, name), 0, want)]
+
+
+#: (shape, word dtype, the grid's address, the key of LOADS3D that an encode launch counts or None):
+#: the kernel's test (csrc/grid_nd.cuh's rows_aligned) is a 16-byte aligned base and a minor extent
+#: of whole 4-word multiples, and only the fp32 3D encoder has two loads
+LOADS = {
+    "fp32 3d aligned": ((16, 32, 128), I32, 1 << 20, "tensor_map"),
+    "fp32 3d aligned, bordered on every axis": ((33, 50, 68), I32, (1 << 20) + 48, "tensor_map"),
+    "fp32 3d odd minor extent": ((17, 32, 129), I32, 1 << 20, "rows"),
+    "fp32 3d minor extent 2 mod 4": ((16, 16, 18), I32, 1 << 20, "rows"),
+    "fp32 3d base 4 bytes off 16": ((16, 32, 128), I32, (1 << 20) + 4, "rows"),
+    "fp32 3d base 8 bytes off 16": ((16, 16, 16), I32, (1 << 20) + 8, "rows"),
+    "fp32 2d": ((130, 512), I32, 1 << 20, None),
+    "fp32 1d": ((4 * HC,), I32, 1 << 20, None),
+    "fp64 3d": ((16, 16, 16), I64, 1 << 20, None),
+    "fp64 2d": ((64, 64), I64, 1 << 20, None),
+}
+NO_LOADS = {"tensor_map": 0, "rows": 0}
+
+
+def test_the_3d_load_counter_has_its_two_keys_at_zero_after_a_reset():
+    codec_cuda.LOADS3D["rows"] += 1
+    for key in codec_cuda.LOADS3D:
+        codec_cuda.LOADS3D[key] = 0
+    assert codec_cuda.LOADS3D == NO_LOADS
+
+
+@pytest.mark.parametrize("label", list(LOADS))
+def test_an_encode_launch_counts_the_3d_load_its_kernel_takes(fake_lib, monkeypatch, label):
+    shape, words, address, load = LOADS[label]
+    launched = []
+    monkeypatch.setattr(codec_cuda, "_launch", lambda fn, index, *args: launched.append(args[0]))
+    monkeypatch.setattr(codec_cuda, "LAUNCHES", dict(codec_cuda.LAUNCHES))
+    monkeypatch.setattr(codec_cuda, "LOADS3D", dict(NO_LOADS))
+    plan = codec_cuda._plan("encode", shape, words, 0)._replace(device=torch.device("cpu"))  # no card here
+    for _ in range(3):
+        codec_cuda._encode(plan, address)
+    assert launched == [address] * 3
+    assert codec_cuda.LOADS3D == dict(NO_LOADS, **({load: 3} if load else {}))
 
 
 def test_the_module_imports_where_torch_has_no_raw_stream_call():
