@@ -172,6 +172,9 @@ SLICE_CELLS = {
     "1d64_2gib at 3*4096+17": (lambda: line64(3 * 4096 + 17, 42), 3, 17),
     # 3d64_2gib, fp64 512x512x1036: 16^3 blocks, a border of 12 on the inner axis
     "3d64_2gib at (32,32,76)": (lambda: cube64((2 * 16, 2 * 16, 4 * 16 + 12), 43), 16, 32 * 32 * 12),
+    # msg_bt fp64 33298679 (the benchmark's msg_bt.device): an odd block count, so the header's pad
+    # entry, and a border of 2295
+    "msg_bt at 3*4096+2295": (lambda: line64(3 * 4096 + 2295, 44), 3, 2295),
 }
 
 
@@ -222,8 +225,9 @@ def on_card(shape, dtype, dev):
 
 
 #: the public paths at full size: bench.py's cells (fp32 2^24, CESM, 256^3 and 512x512x2048, fp64 2^23
-#: and 512^3), the 1D formula at 2^28 + 17 fp32 and 2^27 + 17 fp64, and the cells past the L2 (B3/B4
+#: and 512^3), the 1D formula at 2^28 + 17 fp32 and 2^27 + 17 fp64, the cells past the L2 (B3/B4
 #: in 2D at 1 GiB without a border; B6/B8 in 2D, B5/B7 and B6/B8 in 3D past 2^31 bytes, with borders)
+#: and msg_bt's published length (B5/B7: 8129 blocks, the header's pad entry, a border of 2295)
 FULL_CELLS = {
     "fp32 2^24": ((2**24,), torch.float32),
     "fp32 2^28+17": ((2**28 + 17,), torch.float32),
@@ -237,6 +241,7 @@ FULL_CELLS = {
     "2d64_2gib fp64 16400x16400": ((16400, 16400), torch.float64),
     "1d64_2gib fp64 2^28+17": ((2**28 + 17,), torch.float64),
     "3d64_2gib fp64 512x512x1036": ((512, 512, 1036), torch.float64),
+    "msg_bt fp64 33298679": ((33298679,), torch.float64),
 }
 
 

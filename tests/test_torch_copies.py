@@ -3,7 +3,7 @@ tensor before a launch, by cause, each inside an ``ndzip.copy_in`` span. On
 a card (marker ``cuda``): an fp64 stream at an odd u32 offset is realigned
 once, a 1D input at a 16-byte misalignment and a non-contiguous input are
 copied once each, and aligned, contiguous calls (those of the benchmark's
-``miranda.device`` cell among them) copy nothing."""
+``miranda.device`` and ``msg_bt.device`` cells among them) copy nothing."""
 
 import json
 
@@ -11,7 +11,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from ndzip_tpu_torch import codec_cuda, utils  # noqa: E402
+from ndzip_tpu_torch import codec_cuda, codec_torch, utils  # noqa: E402
 
 NONE = {"realign64": 0, "align1d": 0, "contiguous": 0}
 
@@ -106,6 +106,38 @@ def test_a_misaligned_1d_input_is_copied_once(cuda, dtype):
     assert codec_cuda.COPIES == dict(NONE, align1d=1)
     assert got_n == want_n and torch.equal(stream, want)
     assert torch.equal(_bits(codec_cuda.decompress_device(stream, (n,), dtype)), _bits(x))
+
+
+#: the length of the benchmark's msg_bt.device field: 8129 blocks and a border of 2295
+MSG_BT = 33298679
+
+
+@pytest.mark.cuda
+def test_msg_bt_copies_only_off_alignment(cuda):
+    """A field of msg_bt's length, made fresh on the card as the cell makes
+    it, goes through one round trip with one B5 and one B7 launch and no
+    copy; the same field viewed from its second element (8 B off 16-byte
+    alignment) is copied once, and its stream is still the plain
+    version's, word for word."""
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    buf = torch.sin(torch.arange(MSG_BT + 1, dtype=torch.float64, device=cuda) * 1e-4)
+    buf.add_(torch.randn(MSG_BT + 1, dtype=torch.float64, device=cuda, generator=gen).mul_(1e-3))
+    x = buf[:MSG_BT]
+    for counter in (codec_cuda.COPIES, codec_cuda.LAUNCHES):
+        for k in counter:
+            counter[k] = 0
+    stream, n = _compressed(x)
+    out = codec_cuda.decompress_device(stream, x.shape, torch.float64)
+    assert codec_cuda.COPIES == NONE
+    assert {k: v for k, v in codec_cuda.LAUNCHES.items() if v} == {"encode64": 1, "decode64": 1}
+    assert torch.equal(_bits(out), _bits(x))
+    del out, stream
+    view = buf[1:]
+    assert view.data_ptr() % 16 == 8
+    stream, n = _compressed(view)
+    assert codec_cuda.COPIES == dict(NONE, align1d=1)
+    plain, plain_n = codec_torch.encode(codec_torch.as_words(view))
+    assert int(plain_n) == n and torch.equal(plain[:n], stream)
 
 
 @pytest.mark.cuda
