@@ -45,8 +45,10 @@ SIGNATURES = {
     # dims: the CTAs of the 2D or 3D fp32 kernels that one SM holds, or minus a CUDA error
     "ndzip_encode_fp32_nd_ctas_per_sm": [_I64],
     "ndzip_decode_fp32_nd_ctas_per_sm": [_I64],
-    # the CTAs of the 3D fp32 encoder's box path (rows 16-byte aligned) that one SM holds
+    # the CTAs of the 3D fp32 encoder's and decoder's box paths (rows 16-byte aligned) that one
+    # SM holds
     "ndzip_encode_fp32_nd_box_ctas_per_sm": [],
+    "ndzip_decode_fp32_nd_box_ctas_per_sm": [],
     # the fp64 kernels take the arguments of the fp32 ones; words, out and sizes count u64
     # words, except the stream's size and length, which count u32 words
     "ndzip_encode_fp64": [_P, _I64, _I64, _P, _P, _P, _P],

@@ -56,7 +56,9 @@ before a launch: a non-contiguous input made contiguous, a 1D input at a
 ``LOADS3D`` counts the fp32 3D encode launches by the load their blocks
 take, by the kernel's own test: ``tensor_map`` where the grid's base is
 16-byte aligned and its minor extent a multiple of 4 words (one tensor-map
-box a block), else ``rows`` (the row walk).
+box a block), else ``rows`` (the row walk). ``STORES3D`` counts the fp32
+3D decode launches by the store their blocks take, by the same test on the
+output: ``tensor_map`` (one tensor-map box a block) or ``rows``.
 
 Spans (``utils.trace``, recorded only while a ``torch.profiler`` records or
 under ``NDZIP_TORCH_VERBOSE``): ``ndzip.compress_device`` and
@@ -89,6 +91,8 @@ LAUNCHES = {"encode": 0, "decode": 0, "encode_nd": 0, "decode_nd": 0,
 COPIES = {"realign64": 0, "align1d": 0, "contiguous": 0}
 #: fp32 3D encode launches by the load of their blocks, since the count was last set to 0
 LOADS3D = {"tensor_map": 0, "rows": 0}
+#: fp32 3D decode launches by the store of their blocks, since the count was last set to 0
+STORES3D = {"tensor_map": 0, "rows": 0}
 
 #: the torch dtypes ``decompress_device`` gives as they are named; others are parsed
 _OUT_DTYPES = {d: d for d in (torch.float32, torch.int32, torch.float64, torch.int64)}
@@ -207,9 +211,16 @@ def _encode(plan: _Plan, words: int):
     status = scratch.data_ptr()
     _launch(plan.fn, plan.index, words, *plan.args, stream.data_ptr(), status, status + 4 * at)
     LAUNCHES[plan.counter] += 1
-    if plan.counter == "encode_nd" and len(plan.shape) == 3:  # csrc/grid_nd.cuh's rows_aligned
-        LOADS3D["tensor_map" if words % 16 == 0 and plan.shape[2] % 4 == 0 else "rows"] += 1
+    if plan.counter == "encode_nd" and len(plan.shape) == 3:
+        LOADS3D[_box_or_rows(words, plan.shape)] += 1
     return stream, scratch[at]
+
+
+def _box_or_rows(address: int, shape: tuple) -> str:
+    """How the fp32 3D kernels move the blocks of a grid at ``address``:
+    ``tensor_map`` where its rows start 16-byte aligned (csrc/grid_nd.cuh's
+    rows_aligned), else ``rows``."""
+    return "tensor_map" if address % 16 == 0 and shape[2] % 4 == 0 else "rows"
 
 
 def _decode(plan: _Plan, stream: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -217,6 +228,8 @@ def _decode(plan: _Plan, stream: torch.Tensor, dtype: torch.dtype) -> torch.Tens
     out = torch.empty(plan.shape, dtype=dtype, device=plan.device)
     _launch(plan.fn, plan.index, stream.data_ptr(), stream.numel(), *plan.args, out.data_ptr())
     LAUNCHES[plan.counter] += 1
+    if plan.counter == "decode_nd" and len(plan.shape) == 3:
+        STORES3D[_box_or_rows(out.data_ptr(), plan.shape)] += 1
     return out
 
 

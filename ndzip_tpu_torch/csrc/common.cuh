@@ -393,7 +393,7 @@ __device__ __forceinline__ void encode_run(EncodeRunShared& s, uint64_t b, uint6
 // 1D form, completing on an mbarrier) brings them in and the heads, the
 // 128-count scan and the rank gather read shared memory. The barrier helpers
 // and the tensor copy serve the 3D encoder's block load too
-// (encode_fp32_nd.cu).
+// (encode_fp32_nd.cu), and the tensor store the 3D decoder's block store.
 
 __device__ __forceinline__ void mbarrier_init(uint64_t* bar, uint32_t arrivals) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(shared_address(bar)), "r"(arrivals) : "memory");
@@ -453,6 +453,30 @@ __device__ __forceinline__ void tensor_prefetch_l2(const void* map, uint3 c) {
     asm volatile("cp.async.bulk.prefetch.tensor.3d.L2.global [%0, {%1, %2, %3}];" ::"l"(map), "r"(c.x), "r"(c.y),
                  "r"(c.z)
                  : "memory");
+}
+
+// The box of a 3D tensor map whose first element is at (c.x, c.y, c.z) from
+// src in shared memory (128-byte aligned, dense in the box's order) to the
+// map's tensor, in this thread's bulk group. The threads that wrote src issue
+// fence_proxy_async first, then a barrier; this thread then commits the group
+// and waits for src to be read (bulk_store_wait_read) before the CTA exits.
+__device__ __forceinline__ void tensor_store_from_shared(const void* map, uint3 c, const void* src) {
+    asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%1, %2, %3}], [%4];" ::"l"(map),
+                 "r"(c.x), "r"(c.y), "r"(c.z), "r"(shared_address(src))
+                 : "memory");
+}
+
+// Make this thread's writes to shared memory visible to the bulk copies
+// (the async proxy) that a later barrier orders after them.
+__device__ __forceinline__ void fence_proxy_async() {
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+}
+
+// Commit this thread's bulk stores as one group and wait until their sources
+// in shared memory have been read (not until the writes complete).
+__device__ __forceinline__ void bulk_store_wait_read() {
+    asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
 
 constexpr int kRunSlots = kRunMax + 4;  // a run and its skew of 0-3 words, 16-byte multiples

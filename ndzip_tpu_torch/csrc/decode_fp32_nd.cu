@@ -30,6 +30,16 @@
 //     the store, where the 4 or 16 lanes of a row scan their sums
 //     (grid_nd.cuh's store_block_rowsum). Rows that do not start 16-byte
 //     aligned are stored one word a lane, after one more pass for their sums;
+//   * a 3D grid whose rows start 16-byte aligned takes another store
+//     (decode_blocks_nd_box; the same kernel otherwise). A 3D row is 64 B, so
+//     the row walk spends a 64-bit address and a store on every 16 bytes, and
+//     each warp's store spans eight rows in eight lines. Instead the threads
+//     write the block with its sums along the rows into the run buffer, free
+//     once the run is expanded, dense in the box's order (16-byte stores,
+//     consecutive for consecutive lanes), and one thread stores it as one
+//     16^3 box of the output's tensor map (grid_nd.cuh's box_map, built on
+//     the host for each call): the copy engine makes the 256 row addresses
+//     (10% of the kernel's time at 512^3 and at 512x512x2048);
 //   * a run starts at any word and the stream itself may be a slice at any
 //     word: the copy takes the 16-byte aligned window around the run and
 //     never leaves [0, size). A damaged or truncated stream cannot fault: the
@@ -47,10 +57,13 @@
 //
 // Bound: bytes: 4 B x ratio of stream read and 4 B written per element, in
 // rows of 256 B (2D) or 64 B (3D). The run buffer, the block and the 2D
-// passes' partial sums take 34-35 KB of shared memory a CTA, six CTAs an SM.
+// passes' partial sums take 34-35 KB of shared memory a CTA, six CTAs an SM
+// (the box goes out of the run buffer).
 // Element and stream offsets are 64-bit. The measurements named here and the
 // variants beside them: PERF.md (512x512x2048 on an NVIDIA H100 80GB HBM3,
 // 700.00 W).
+
+#include <cstddef>
 
 #include "grid_nd.cuh"
 
@@ -126,21 +139,63 @@ decode_blocks_nd(const uint32_t* __restrict__ stream, uint64_t size, Blocks<Dims
     }
 }
 
+static_assert(offsetof(DecodeNdShared<3>, run) % 128 == 0 && offsetof(RunBuffer, words) == 0,
+              "the box goes out of s.run, 128-byte aligned");
+
+// decode_blocks_nd<3> for a grid whose rows start 16-byte aligned, with the
+// block's store through the output's tensor map (grid_nd.cuh's box_map): the
+// sums along the rows go into s.run, which lies unused once expand_run has
+// read it, as the dense 16^3 box (z*256 + y*16 + x), and one thread stores
+// it as one 16 KiB box. Border CTAs and everything up to the sums along the
+// rows are decode_blocks_nd's. Six CTAs an SM, as there.
+__global__ void __launch_bounds__(kThreads, 6)
+decode_blocks_nd_box(const __grid_constant__ CUtensorMap map, const uint32_t* __restrict__ stream, uint64_t size,
+                     Blocks<3> geo, Border border, uint64_t num_hc, uint32_t* __restrict__ out) {
+    const int t = threadIdx.x;
+    const uint32_t b = blockIdx.x;
+    if (b >= num_hc) {
+        decode_border(stream, size, num_hc, border, b - num_hc, out);
+        return;
+    }
+
+    __shared__ __align__(128) DecodeNdShared<3> s;
+    if (t == 0) {
+        mbarrier_init(&s.full, 1);
+        mbarrier_init_fence();
+        start_run_copy(stream, size, num_hc, b ? stream[b - 1] : 0u, stream[b], s.run, &s.full);
+    }
+    __syncthreads();
+    mbarrier_wait(&s.full, 0);
+    expand_run(s.run, s.x);
+
+    prefix_sum<3, 0, true>(s.x, s.partial);
+    prefix_sum<3, 1, false>(s.x, s.partial);
+    uint32_t* box = s.run.words;
+    rowsum_words<3>(s.x, [&](int i, uint4 v) { *reinterpret_cast<uint4*>(box + i) = v; });
+    fence_proxy_async();
+    __syncthreads();
+    if (t == 0) {
+        tensor_store_from_shared(&map, geo.corner32(b), box);
+        bulk_store_wait_read();
+    }
+}
+
 template <int Dims>
 int decode_nd(const uint32_t* stream, uint64_t size, uint64_t e0, uint64_t e1, uint64_t e2,
               uint32_t* out, cudaStream_t s) {
     const GridNd<Dims> g(e0, e1, e2);
-    decode_blocks_nd<Dims><<<static_cast<unsigned>(g.num_hc + border_ctas(g.border.count)), kThreads, 0, s>>>(
-        stream, size, g.blocks, g.border, rows_aligned(out, e2), g.num_hc, out);
+    const auto ctas = static_cast<unsigned>(g.num_hc + border_ctas(g.border.count));
+    const bool vec = rows_aligned(out, e2);
+    if constexpr (Dims == 3) {
+        if (vec) {
+            CUtensorMap map;
+            if (const int bad = box_map(&map, out, e0, e1, e2)) return bad;
+            decode_blocks_nd_box<<<ctas, kThreads, 0, s>>>(map, stream, size, g.blocks, g.border, g.num_hc, out);
+            return cudaGetLastError();
+        }
+    }
+    decode_blocks_nd<Dims><<<ctas, kThreads, 0, s>>>(stream, size, g.blocks, g.border, vec, g.num_hc, out);
     return cudaGetLastError();
-}
-
-template <int Dims>
-int decode_nd_ctas_per_sm() {
-    int ctas = 0;
-    const cudaError_t err =
-        cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, decode_blocks_nd<Dims>, kThreads, 0);
-    return err == cudaSuccess ? ctas : -static_cast<int>(err);
 }
 
 }  // namespace ndzip
@@ -163,7 +218,11 @@ extern "C" int ndzip_decode_fp32_nd(const void* stream, int64_t size, int64_t di
 // CTAs of decode_blocks_nd for `dims` (2 or 3) that one SM holds at a time,
 // or minus the CUDA error.
 extern "C" int ndzip_decode_fp32_nd_ctas_per_sm(int64_t dims) {
-    if (dims == 2) return ndzip::decode_nd_ctas_per_sm<2>();
-    if (dims == 3) return ndzip::decode_nd_ctas_per_sm<3>();
+    if (dims == 2) return ndzip::ctas_per_sm(ndzip::decode_blocks_nd<2>);
+    if (dims == 3) return ndzip::ctas_per_sm(ndzip::decode_blocks_nd<3>);
     return -static_cast<int>(cudaErrorInvalidValue);
 }
+
+// CTAs of decode_blocks_nd_box (3D grids whose rows start 16-byte aligned)
+// that one SM holds at a time, or minus the CUDA error.
+extern "C" int ndzip_decode_fp32_nd_box_ctas_per_sm() { return ndzip::ctas_per_sm(ndzip::decode_blocks_nd_box); }

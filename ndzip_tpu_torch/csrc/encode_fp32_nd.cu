@@ -79,8 +79,6 @@
 // The measurements named here and the variants beside them: PERF.md (2 GiB
 // grids, 512x512x2048 and 16384x32768, on an NVIDIA H100 80GB HBM3, 700.00 W).
 
-#include <cuda.h>  // CUtensorMap and its encoding's types; the function is found at run time
-
 #include <cstddef>
 
 #include "grid_nd.cuh"
@@ -205,7 +203,7 @@ encode_blocks_nd(const uint32_t* __restrict__ words, Blocks<Dims> geo, Border bo
 static_assert(offsetof(EncodeRunShared, run) % 128 == 0, "the box lands in s.run, 128-byte aligned");
 
 // encode_blocks_nd<3> for a grid whose rows start 16-byte aligned, with the
-// block's load and prefetch through the grid's tensor map (encode_nd's
+// block's load and prefetch through the grid's tensor map (grid_nd.cuh's
 // box_map): the CTA's block moves into s.run, which lies unused until the
 // compaction, as one 16 KiB box, and difference_box takes it from there into
 // s.x. Border CTAs and everything from s.x on are encode_blocks_nd's. Six
@@ -244,35 +242,6 @@ encode_blocks_nd_box(const __grid_constant__ CUtensorMap map, const uint32_t* __
         *length = static_cast<int32_t>(num_hc + s.exclusive + s.length + border.count);
 }
 
-// The tensor map of a 3D grid of (e0, e1, e2) u32 words whose rows start
-// 16-byte aligned (rows_aligned: the map needs a 16-byte aligned base and
-// strides of 16-byte multiples), with a 16^3 box and the L2 asked for whole
-// 128-byte lines, as load_block asks. No element of a block's box lies
-// outside the grid. The driver's cuTensorMapEncodeTiled is looked up once
-// through the runtime, so the library links no -lcuda. Returns 0 or the
-// driver's error.
-inline int box_map(CUtensorMap* map, const uint32_t* grid, uint64_t e0, uint64_t e1, uint64_t e2) {
-    using Encode = decltype(&cuTensorMapEncodeTiled);
-    static const Encode encode = [] {
-        void* fn = nullptr;
-        cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-        const cudaError_t err =
-            cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
-#else
-        const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
-#endif
-        return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<Encode>(fn) : nullptr;
-    }();
-    if (encode == nullptr) return cudaErrorNotSupported;
-    const cuuint64_t dims[3] = {e2, e1, e0};                   // innermost first
-    const cuuint64_t strides[2] = {4 * e2, 4 * e1 * e2};        // bytes, of axes 1 and 0
-    const cuuint32_t box[3] = {16, 16, 16}, steps[3] = {1, 1, 1};
-    return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, const_cast<uint32_t*>(grid), dims, strides, box, steps,
-                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-}
-
 template <int Dims>
 int encode_nd(const uint32_t* in, uint64_t e0, uint64_t e1, uint64_t e2, uint32_t* out, uint64_t* status,
               int32_t* length, cudaStream_t s) {
@@ -292,13 +261,6 @@ int encode_nd(const uint32_t* in, uint64_t e0, uint64_t e1, uint64_t e2, uint32_
     }
     encode_blocks_nd<Dims><<<ctas, kThreads, 0, s>>>(in, g.blocks, g.border, vec, g.num_hc, status, out, length);
     return cudaGetLastError();
-}
-
-template <typename Kernel>
-int encode_ctas_per_sm(Kernel kernel) {
-    int ctas = 0;
-    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, kThreads, 0);
-    return err == cudaSuccess ? ctas : -static_cast<int>(err);
 }
 
 }  // namespace ndzip
@@ -324,11 +286,11 @@ extern "C" int ndzip_encode_fp32_nd(const void* words, int64_t dims, int64_t e0,
 // CTAs of encode_blocks_nd for `dims` (2 or 3) that one SM holds at a time,
 // or minus the CUDA error.
 extern "C" int ndzip_encode_fp32_nd_ctas_per_sm(int64_t dims) {
-    if (dims == 2) return ndzip::encode_ctas_per_sm(ndzip::encode_blocks_nd<2>);
-    if (dims == 3) return ndzip::encode_ctas_per_sm(ndzip::encode_blocks_nd<3>);
+    if (dims == 2) return ndzip::ctas_per_sm(ndzip::encode_blocks_nd<2>);
+    if (dims == 3) return ndzip::ctas_per_sm(ndzip::encode_blocks_nd<3>);
     return -static_cast<int>(cudaErrorInvalidValue);
 }
 
 // CTAs of encode_blocks_nd_box (3D grids whose rows start 16-byte aligned)
 // that one SM holds at a time, or minus the CUDA error.
-extern "C" int ndzip_encode_fp32_nd_box_ctas_per_sm() { return ndzip::encode_ctas_per_sm(ndzip::encode_blocks_nd_box); }
+extern "C" int ndzip_encode_fp32_nd_box_ctas_per_sm() { return ndzip::ctas_per_sm(ndzip::encode_blocks_nd_box); }

@@ -1,14 +1,17 @@
 // Geometry shared by the fp32 2D/3D kernels (encode_fp32_nd.cu,
 // decode_fp32_nd.cu): where a block lies in the grid, the row walk that moves
 // a block between the grid and shared memory (walk_block, which the fp64
-// kernels and stage_blocks_nd.cu move blocks with too), and the lines of a
-// block along each axis that the transform walks.
+// kernels and stage_blocks_nd.cu move blocks with too), the tensor map that
+// moves a 3D block as one box instead (box_map), and the lines of a block
+// along each axis that the transform walks.
 //
 // A grid of 2 or 3 dims is seen with three axes (e0, e1, e2), e0 = 1 in 2D.
 // Its blocks are 64x64 (2D) or 16^3 (3D) words. In shared memory a block sits
 // in its row-major order (common.cuh's pad), rows of kSide words along axis
 // 2: word r*64 + c in 2D, z*256 + y*16 + x in 3D.
 #pragma once
+
+#include <cuda.h>  // CUtensorMap and its encoding's types; the function is found at run time
 
 #include "common.cuh"
 
@@ -74,6 +77,45 @@ struct GridNd {
 // multiple of 4 words: then a block moves in 16-byte accesses.
 inline bool rows_aligned(const void* grid, uint64_t e2) {
     return reinterpret_cast<uintptr_t>(grid) % 16 == 0 && e2 % 4 == 0;
+}
+
+// The tensor map of a 3D grid of (e0, e1, e2) u32 words whose rows start
+// 16-byte aligned (rows_aligned: the map needs a 16-byte aligned base and
+// strides of 16-byte multiples), with a 16^3 box and the L2 asked for whole
+// 128-byte lines, as load_block asks: what the 3D encoder loads a block
+// through (encode_fp32_nd.cu) and the 3D decoder stores one through
+// (decode_fp32_nd.cu). No element of a block's box lies outside the grid.
+// cuTensorMapEncodeTiled is looked up once through the runtime, so the
+// library links no -lcuda. Returns 0 or the error of the encoding.
+inline int box_map(CUtensorMap* map, const uint32_t* grid, uint64_t e0, uint64_t e1, uint64_t e2) {
+    using Encode = decltype(&cuTensorMapEncodeTiled);
+    static const Encode encode = [] {
+        void* fn = nullptr;
+        cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+        const cudaError_t err =
+            cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &fn, 12000, cudaEnableDefault, &found);
+#else
+        const cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &fn, cudaEnableDefault, &found);
+#endif
+        return err == cudaSuccess && found == cudaDriverEntryPointSuccess ? reinterpret_cast<Encode>(fn) : nullptr;
+    }();
+    if (encode == nullptr) return cudaErrorNotSupported;
+    const cuuint64_t dims[3] = {e2, e1, e0};                   // innermost first
+    const cuuint64_t strides[2] = {4 * e2, 4 * e1 * e2};        // bytes, of axes 1 and 0
+    const cuuint32_t box[3] = {16, 16, 16}, steps[3] = {1, 1, 1};
+    return encode(map, CU_TENSOR_MAP_DATA_TYPE_UINT32, 3, const_cast<uint32_t*>(grid), dims, strides, box, steps,
+                  CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                  CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+}
+
+// CTAs of `kernel` (kThreads threads, static shared memory) that one SM
+// holds at a time, or minus the CUDA error.
+template <typename Kernel>
+int ctas_per_sm(Kernel kernel) {
+    int ctas = 0;
+    const cudaError_t err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&ctas, kernel, kThreads, 0);
+    return err == cudaSuccess ? ctas : -static_cast<int>(err);
 }
 
 // The walk of a block's words that every 2D/3D kernel moves a block through
@@ -146,15 +188,13 @@ __device__ __forceinline__ void store_block_words(uint32_t* __restrict__ block, 
     walk_block<1>([&](int i) { block[geo.word(i)] = rotr1(x[pad(i)]); });
 }
 
-// Store the wrapping inclusive prefix sums of x along the rows into the block
-// whose first word is `block`, each rotated right by one, with 16-byte stores
-// (rows start 16-byte aligned): the inverse transform's sums along the rows,
-// which commute with those along the other axes, done in registers on the way
-// out. A thread sums its four words, and the 4 or 16 lanes of a row scan
-// their sums.
-template <int Dims>
-__device__ __forceinline__ void store_block_rowsum(uint32_t* __restrict__ block, const Blocks<Dims>& geo,
-                                                   const uint32_t* x) {
+// The wrapping inclusive prefix sums of x along the rows, each rotated right
+// by one: the inverse transform's sums along the rows, which commute with
+// those along the other axes, taken in registers on the way out. Thread t
+// calls f(i, v) with the four words from block word i (walk_block<4>'s i) in
+// v: it sums its four words, and the 4 or 16 lanes of a row scan their sums.
+template <int Dims, typename F>
+__device__ __forceinline__ void rowsum_words(const uint32_t* x, F f) {
     constexpr int kLanes = Blocks<Dims>::kSide / 4;  // lanes a row
     const int at = threadIdx.x & (kLanes - 1);
     walk_block<4>([&](int i) {
@@ -166,9 +206,18 @@ __device__ __forceinline__ void store_block_rowsum(uint32_t* __restrict__ block,
             if (at >= off) sum += up;
         }
         const uint32_t before = sum - d;
-        *reinterpret_cast<uint4*>(block + geo.word(i)) =
-            make_uint4(rotr1(a + before), rotr1(b + before), rotr1(c + before), rotr1(d + before));
+        f(i, make_uint4(rotr1(a + before), rotr1(b + before), rotr1(c + before), rotr1(d + before)));
     });
+}
+
+// Store x with its sums along the rows (rowsum_words) into the block whose
+// first word is `block`, with 16-byte stores (rows start 16-byte aligned).
+// The 2D decoder's store; a 3D block whose rows are aligned goes out as one
+// tensor-map box instead (decode_fp32_nd.cu's decode_blocks_nd_box).
+template <int Dims>
+__device__ __forceinline__ void store_block_rowsum(uint32_t* __restrict__ block, const Blocks<Dims>& geo,
+                                                   const uint32_t* x) {
+    rowsum_words<Dims>(x, [&](int i, uint4 v) { *reinterpret_cast<uint4*>(block + geo.word(i)) = v; });
 }
 
 // The 16 block words start + k * step (k < 16) that thread t walks along

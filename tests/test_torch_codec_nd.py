@@ -14,7 +14,11 @@ constant field (the border's first stream word at different offsets in a
 1024 border CTAs are more than the card holds at once, and thin borders;
 and on 3D grids through both of the encoder's block loads, each counted in
 ``codec_cuda.LOADS3D``: one tensor-map box a block where rows start 16-byte
-aligned, the row walk from a view 4 bytes off 16. On the CPU, a numpy model
+aligned, the row walk from a view 4 bytes off 16; and through both of the
+decoder's block stores, each counted in ``codec_cuda.STORES3D``: one
+tensor-map box a block where the minor extent is a multiple of 4 words (also
+from a stream that starts 1-3 words past 16 bytes), the row walk where it is
+not, each decoding ``ndzip_tpu.golden``'s stream. On the CPU, a numpy model
 of the 3D box path's fused pass, lane by lane, is held to
 ``golden.block_transform``."""
 
@@ -271,3 +275,44 @@ def test_box_and_row_loads_on_the_card_match_golden(cuda, label):
     out = nt.decompress_device(stream[:length], data.shape)
     assert same_bits(out.cpu().numpy(), data)
 
+
+#: 3D grids and the store the decoder takes for their blocks (``codec_cuda.STORES3D``), with the
+#: word offset of the stream in its buffer: where the minor extent is a multiple of 4 words (the
+#: output is a fresh, aligned tensor), one tensor-map box a block (a whole block alone, whole
+#: blocks, 512^3 as the magrecon cell holds it, bordered on every axis, 1024 border CTAs, special
+#: floats, random bits, and a stream that starts 1-3 words past 16 bytes); else the row walk
+STORE_CASES = {
+    "box (16,16,16)": (lambda: normal((16, 16, 16), 70), 0, "tensor_map"),
+    "box (48,48,64)": (lambda: normal((48, 48, 64), 71), 0, "tensor_map"),
+    "box 512^3": (lambda: normal((512, 512, 512), 72), 0, "tensor_map"),
+    "box bordered on every axis (33,50,68)": (lambda: normal((33, 50, 68), 73), 0, "tensor_map"),
+    "box 1024 border CTAs (20,1024,1024)": (lambda: normal((20, 1024, 1024), 74), 0, "tensor_map"),
+    "box special floats (32,48,64)": (lambda: special_floats((32, 48, 64), 75), 0, "tensor_map"),
+    "box random bits (32,32,48)": (lambda: random_bits((32, 32, 48), 76), 0, "tensor_map"),
+    "box, stream at word offset 1 (48,48,64)": (lambda: normal((48, 48, 64), 77), 1, "tensor_map"),
+    "box, stream at word offset 2 (33,50,68)": (lambda: normal((33, 50, 68), 78), 2, "tensor_map"),
+    "box, stream at word offset 3 (32,48,64)": (lambda: special_floats((32, 48, 64), 79), 3, "tensor_map"),
+    "rows, odd minor extent (17,32,129)": (lambda: normal((17, 32, 129), 80), 0, "rows"),
+    "rows, minor extent 2 mod 4 (16,16,18)": (lambda: normal((16, 16, 18), 81), 0, "rows"),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("label", list(STORE_CASES))
+def test_box_and_row_stores_on_the_card_match_golden(cuda, label):
+    make, offset, store = STORE_CASES[label]
+    data = make()
+    g, g_len = golden.compress(data)
+    stream, length = nt.compress_device(torch.from_numpy(data).to(cuda))
+    assert int(length) == g_len
+    assert interop.stream_to_numpy(stream.cpu(), length.cpu()).tobytes() == g.tobytes()
+    buffer = torch.empty(g.size + offset, dtype=torch.int32, device=cuda)
+    sliced = buffer[offset:]
+    sliced.copy_(torch.from_numpy(g.view(np.int32)))  # golden's stream, not the card's
+    assert sliced.data_ptr() % 16 == 4 * offset
+    for key in codec_cuda.STORES3D:
+        codec_cuda.STORES3D[key] = 0
+    out = nt.decompress_device(sliced, data.shape)
+    assert codec_cuda.STORES3D == dict({"tensor_map": 0, "rows": 0}, **{store: 1})
+    assert out.data_ptr() % 16 == 0
+    assert same_bits(out.cpu().numpy(), data)

@@ -59,10 +59,11 @@ def cuda():
     return torch.device("cuda")
 
 
-#: the thirteen codec kernels, each by a part of its mangled name that no other kernel's holds, with
+#: the fourteen codec kernels, each by a part of its mangled name that no other kernel's holds, with
 #: the C function (and its argument) that gives the CTAs of it that one SM holds
 PTXAS_KERNELS = {
     "5ndzip20encode_blocks_nd_boxE": ("ndzip_encode_fp32_nd_box_ctas_per_sm", ()),
+    "5ndzip20decode_blocks_nd_boxE": ("ndzip_decode_fp32_nd_box_ctas_per_sm", ()),
     "5ndzip13encode_blocksE": ("ndzip_encode_fp32_ctas_per_sm", ()),
     "5ndzip13decode_blocksE": ("ndzip_decode_fp32_ctas_per_sm", ()),
     "5ndzip16encode_blocks_ndILi2E": ("ndzip_encode_fp32_nd_ctas_per_sm", (2,)),
@@ -82,16 +83,20 @@ PTXAS_KERNELS = {
 @pytest.mark.parametrize("kernel", list(PTXAS_KERNELS))
 def test_cuda_ptxas_reports_each_kernel_once(cuda, kernel):
     """ptxas -v reports each codec kernel once, at least one CTA of it fits
-    an SM, the 3D encoder's box path holds six CTAs an SM as its row walk
-    does, and the fp64 decoders, whose register bound is set for their
-    shared memory (four CTAs an SM), spill nothing under it."""
+    an SM, the 3D encoder's and decoder's box paths hold six CTAs an SM as
+    their row walks do, the 3D decoder's box path spills nothing under the
+    bound that keeps it there, and the fp64 decoders, whose register bound
+    is set for their shared memory (four CTAs an SM), spill nothing under
+    it."""
     ctas, args = PTXAS_KERNELS[kernel]
     lines = _build.ptxas_lines(kernel)
     assert len(lines) == 1, lines
     assert getattr(_build.load(), ctas)(*args) >= 1
     if "encode_blocks_nd_box" in kernel:  # the box lands in a buffer the row walk has too: six CTAs, as there
         assert getattr(_build.load(), ctas)(*args) == _build.load().ndzip_encode_fp32_nd_ctas_per_sm(3) == 6
-    if "decode_blocks64" in kernel:
+    if "decode_blocks_nd_box" in kernel:  # the box goes out of the run buffer: six CTAs, as the row walk
+        assert getattr(_build.load(), ctas)(*args) == _build.load().ndzip_decode_fp32_nd_ctas_per_sm(3) == 6
+    if "decode_blocks64" in kernel or "decode_blocks_nd_box" in kernel:
         assert re.findall(r"(\d+) bytes spill (?:stores|loads)", lines[0]) == ["0", "0"], lines[0]
 
 

@@ -8,7 +8,9 @@ comes before a launch raises with its message whether the plan is cold or
 warm, and a host tensor builds no plan; the module imports where torch has
 no ``_cuda_getCurrentRawStream``; an encode launch counts in
 ``codec_cuda.LOADS3D`` the load the fp32 3D kernel takes for its grid's
-address and minor extent, and no other launch counts there. On a card (marker ``cuda``): B1-B8 from a
+address and minor extent, and no other launch counts there; a decode launch
+counts in ``codec_cuda.STORES3D`` the store the fp32 3D kernel takes for its
+output's minor extent, and no other launch counts there. On a card (marker ``cuda``): B1-B8 from a
 cold and a warm plan give the plain version's streams byte for byte and
 round-trip bit for bit, the per-call refusals hold cold and warm, a call
 inside ``torch.cuda.stream(side)`` runs on ``side``, and ``plans()`` counts
@@ -270,6 +272,45 @@ def test_an_encode_launch_counts_the_3d_load_its_kernel_takes(fake_lib, monkeypa
         codec_cuda._encode(plan, address)
     assert launched == [address] * 3
     assert codec_cuda.LOADS3D == dict(NO_LOADS, **({load: 3} if load else {}))
+
+
+#: (shape, word dtype, the key of STORES3D that a decode launch counts or None): the output is a
+#: fresh tensor, 16-byte aligned, so the kernel's test (csrc/grid_nd.cuh's rows_aligned) comes down
+#: to a minor extent of whole 4-word multiples, and only the fp32 3D decoder has two stores
+STORES = {
+    "fp32 3d aligned": ((16, 32, 128), I32, "tensor_map"),
+    "fp32 3d aligned, bordered on every axis": ((33, 50, 68), I32, "tensor_map"),
+    "fp32 3d odd minor extent": ((17, 32, 129), I32, "rows"),
+    "fp32 3d minor extent 2 mod 4": ((16, 16, 18), I32, "rows"),
+    "fp32 2d": ((130, 512), I32, None),
+    "fp32 1d": ((4 * HC,), I32, None),
+    "fp64 3d": ((16, 16, 16), I64, None),
+    "fp64 2d": ((64, 64), I64, None),
+}
+
+
+def test_the_3d_store_counter_has_its_two_keys_at_zero_after_a_reset():
+    codec_cuda.STORES3D["tensor_map"] += 1
+    for key in codec_cuda.STORES3D:
+        codec_cuda.STORES3D[key] = 0
+    assert codec_cuda.STORES3D == NO_LOADS
+
+
+@pytest.mark.parametrize("label", list(STORES))
+def test_a_decode_launch_counts_the_3d_store_its_kernel_takes(fake_lib, monkeypatch, label):
+    shape, words, store = STORES[label]
+    launched = []
+    monkeypatch.setattr(codec_cuda, "_launch", lambda fn, index, *args: launched.append(args[-1]))
+    monkeypatch.setattr(codec_cuda, "LAUNCHES", dict(codec_cuda.LAUNCHES))
+    monkeypatch.setattr(codec_cuda, "LOADS3D", dict(NO_LOADS))
+    monkeypatch.setattr(codec_cuda, "STORES3D", dict(NO_LOADS))
+    plan = codec_cuda._plan("decode", shape, words, 0)._replace(device=torch.device("cpu"))  # no card here
+    stream = torch.zeros(plan.header, dtype=I32)
+    outs = [codec_cuda._decode(plan, stream, words) for _ in range(3)]
+    assert launched == [out.data_ptr() for out in outs]
+    assert all(out.data_ptr() % 16 == 0 and out.shape == shape for out in outs)
+    assert codec_cuda.STORES3D == dict(NO_LOADS, **({store: 3} if store else {}))
+    assert codec_cuda.LOADS3D == NO_LOADS
 
 
 def test_the_module_imports_where_torch_has_no_raw_stream_call():
