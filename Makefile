@@ -1,7 +1,7 @@
 # Convenience targets (the analog of the reference's top-level CMake
 # workflow; the Python package itself needs no build step).
 
-.PHONY: all native test test-tpu bench ubench lint clean lint-torch test-cuda bench-torch
+.PHONY: all native test test-tpu bench ubench lint clean lint-torch test-cuda bench-torch test-portbench
 
 all: native
 
@@ -53,6 +53,13 @@ test-cuda:
 
 bench-torch:
 	python -m ndzip_tpu_torch.bench
+
+# The benchmark's own tests (portbench/): its harness, readers and cells cut to
+# small sizes, on the CPU with the program's plain versions. The cuda-marked
+# cut cells run where torch sees a GPU and skip elsewhere; on the card,
+# `make test-portbench PORTBENCH_ARGS="-m cuda"` runs those alone.
+test-portbench:
+	python -m pytest portbench/tests -q $(PORTBENCH_ARGS)
 
 clean:
 	rm -f native/libndzip_cpu.so

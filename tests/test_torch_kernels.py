@@ -166,6 +166,20 @@ def test_decode_blocks_ref_matches_pallas(pallas, nb):
     assert np.array_equal(ours.numpy().view(np.uint32), blocks)
 
 
+@pytest.mark.parametrize("label", list(kernel_cases()))
+def test_plain_codec_is_golden_on_the_kernel_cases(label):
+    """The plain 1D path that the card's B1/B2 are held to below: its stream
+    is golden's byte for byte, and its decode of golden's stream gives back
+    the input."""
+    data = kernel_cases()[label]
+    w = torch.from_numpy(data.view(np.int32))
+    stream, length = codec_torch.encode(w)
+    g_stream, g_length = golden.compress(data.view(np.float32))
+    assert int(length) == g_length
+    assert stream[:g_length].numpy().view(np.uint32).tobytes() == g_stream.tobytes()
+    assert torch.equal(codec_torch.decode(torch.from_numpy(g_stream.view(np.int32)), w.shape), w)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("label", list(kernel_cases()))
 def test_cuda_kernels_match_plain(cuda, label):

@@ -34,7 +34,8 @@ def special_floats(d: np.ndarray) -> np.ndarray:
 def kernel_cases() -> dict[str, np.ndarray]:
     """Small fp32 1D inputs for the 1D kernels: whole blocks and a border,
     zeros, random bits (every block at its 4224-word maximum), a constant,
-    one block, and special floats."""
+    one block, special floats, and HACC's structure (an even block count and
+    a border of 1,035 elements, as 280,953,867 = 4096 x 68,592 + 1,035)."""
     rng = np.random.default_rng(0)
     special = special_floats(normal(4096 * 8 + 37, rng))
     return {
@@ -45,6 +46,7 @@ def kernel_cases() -> dict[str, np.ndarray]:
         "constant": np.full(4096 * 8, 3.25, np.float32),
         "single block": normal(4096, rng),
         "nan/inf/-0/denormal": special,
+        "4096*6+1035": normal(4096 * 6 + 1035, rng),
     }
 
 
