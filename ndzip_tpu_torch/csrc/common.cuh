@@ -103,8 +103,9 @@ struct EncodeShared {
     uint32_t offsets[kChunks];
 };
 
-// The 1D encoders' load and transform (encode_fp32.cu; the placement stage
-// of stage_placement.cu): load the 16-byte aligned 4096-word block `block`
+// The placement stage's load and transform (stage_placement.cu; B1 in
+// encode_fp32.cu loads its block by a bulk copy instead and transforms it in
+// one pass): load the 16-byte aligned 4096-word block `block`
 // into x with 16-byte loads, rotating each word left by one, then first
 // differences along the block (word 0 stays) and complement-negative. Ends
 // with a barrier.
@@ -392,8 +393,9 @@ __device__ __forceinline__ void encode_run(EncodeRunShared& s, uint64_t b, uint6
 // header[b-1] and length = header[b] - header[b-1], so one bulk copy (TMA's
 // 1D form, completing on an mbarrier) brings them in and the heads, the
 // 128-count scan and the rank gather read shared memory. The barrier helpers
-// and the tensor copy serve the 3D encoder's block load too
-// (encode_fp32_nd.cu), and the tensor store the 3D decoder's block store.
+// serve the encoders' block loads too: the bulk copy and its L2 prefetch the
+// 1D encoder's (encode_fp32.cu), the tensor copy the 3D encoder's
+// (encode_fp32_nd.cu); the tensor store serves the 3D decoder's block store.
 
 __device__ __forceinline__ void mbarrier_init(uint64_t* bar, uint32_t arrivals) {
     asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(shared_address(bar)), "r"(arrivals) : "memory");
@@ -434,6 +436,13 @@ __device__ __forceinline__ void bulk_copy_to_shared(void* dst, const void* src, 
                      shared_address(dst)),
                  "l"(src), "r"(bytes), "r"(shared_address(bar))
                  : "memory");
+}
+
+// Ask the L2 for `bytes` from src (16-byte aligned, bytes a multiple of 16),
+// without a copy or a barrier: the 1D encoder's hint for the block that the
+// CTA kAhead tickets later will copy, so that its copy is served by the L2.
+__device__ __forceinline__ void bulk_prefetch_l2(const void* src, uint32_t bytes) {
+    asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;" ::"l"(src), "r"(bytes) : "memory");
 }
 
 // The box of a 3D tensor map whose first element is at (c.x, c.y, c.z),

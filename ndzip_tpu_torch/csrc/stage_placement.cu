@@ -20,7 +20,8 @@
 //     (golden.encode_blocks_dense). B1's placement pass without the header
 //     read, the scan of the chunk counts and the compaction; the load,
 //     transform and transpose are common.cuh's (load_transform_1d,
-//     warp_transpose_bits), as B1 runs them.
+//     warp_transpose_bits), as B1 ran them before it took its block by a
+//     bulk copy (encode_fp32.cu).
 // The probe's "dbuf" mode, its staging double-buffered so one step's output
 // DMA overlaps the next step's compute, has no kernel here: several CTAs are
 // resident on an SM and overlap one another's loads and stores without code.

@@ -7,12 +7,15 @@ package's bit ops and its Pallas kernels in interpret mode, exact bits:
 B1 (_encode_blocks_fp32) and B2 (_decode_blocks_fp32) for 1D and the gather
 route of 2D, B3 (_encode_interior_fp32) and B4 (_decode_interior_fp32) for
 tiled 2D/3D grids, and their fp64 counterparts B5-B8 on int64 words, whose
-JAX versions take (lo, hi) u32 planes (``interop.planes_from_words``). On a
+JAX versions take (lo, hi) u32 planes (``interop.planes_from_words``); and
+the 1D encoder's one-pass transform of its bulk-copied block, lane by lane
+in numpy, against ``golden.block_transform``. On a
 card (marker ``cuda``, skipped elsewhere): the CUDA kernels against the
 plain versions and against ``golden`` on the cases of ``torch_cases``,
 exact: the kernel's stream is golden's byte for byte, and the decode kernel
 gives back the input from golden's stream; the 1D encoder also on inputs
-that stress its look-back, many times and on two CUDA streams, and the 1D
+that stress its look-back and its L2 prefetch, many times and on two CUDA
+streams, and on a caller's view 4 bytes off alignment, and the 1D
 decoder on stream views at any word offset, without slack and truncated; the
 2D/3D pair on the same, and on bordered grids whose border needs more CTAs
 than the card holds at once or whose rows are not 16-byte aligned; the fp64
@@ -37,7 +40,8 @@ from ndzip_tpu.ops import bitops as ref_bitops  # noqa: E402
 from ndzip_tpu.ops import u64pair  # noqa: E402
 from ndzip_tpu_torch import _build, codec_cuda, codec_torch, interop  # noqa: E402
 from ndzip_tpu_torch.ops import bitops  # noqa: E402
-from torch_cases import fp64_kernel_cases, kernel_cases, nd_border_shapes, nd_kernel_cases, normal  # noqa: E402
+from torch_cases import (fp64_kernel_cases, kernel_cases, nd_border_shapes, nd_kernel_cases, normal,  # noqa: E402
+                         special_floats)
 
 HC = codec_torch.HC
 
@@ -84,10 +88,11 @@ PTXAS_KERNELS = {
 def test_cuda_ptxas_reports_each_kernel_once(cuda, kernel):
     """ptxas -v reports each codec kernel once, at least one CTA of it fits
     an SM, the 3D encoder's and decoder's box paths hold six CTAs an SM as
-    their row walks do, the 3D decoder's box path spills nothing under the
-    bound that keeps it there, and the fp64 decoders, whose register bound
-    is set for their shared memory (four CTAs an SM), spill nothing under
-    it."""
+    their row walks do, the 1D fp32 encoder holds six CTAs an SM beside its
+    bulk copy's barrier, the 1D fp32 encoder and the 3D decoder's box path
+    spill nothing under the bound that keeps them there, and the fp64
+    decoders, whose register bound is set for their shared memory (four
+    CTAs an SM), spill nothing under it."""
     ctas, args = PTXAS_KERNELS[kernel]
     lines = _build.ptxas_lines(kernel)
     assert len(lines) == 1, lines
@@ -96,7 +101,9 @@ def test_cuda_ptxas_reports_each_kernel_once(cuda, kernel):
         assert getattr(_build.load(), ctas)(*args) == _build.load().ndzip_encode_fp32_nd_ctas_per_sm(3) == 6
     if "decode_blocks_nd_box" in kernel:  # the box goes out of the run buffer: six CTAs, as the row walk
         assert getattr(_build.load(), ctas)(*args) == _build.load().ndzip_decode_fp32_nd_ctas_per_sm(3) == 6
-    if "decode_blocks64" in kernel or "decode_blocks_nd_box" in kernel:
+    if kernel == "5ndzip13encode_blocksE":  # the block lands in the run buffer: six CTAs, as before the bulk copy
+        assert getattr(_build.load(), ctas)(*args) == 6
+    if "decode_blocks64" in kernel or "decode_blocks_nd_box" in kernel or kernel == "5ndzip13encode_blocksE":
         assert re.findall(r"(\d+) bytes spill (?:stores|loads)", lines[0]) == ["0", "0"], lines[0]
 
 
@@ -211,12 +218,22 @@ def test_cuda_kernels_match_plain(cuda, label):
     assert torch.equal(g_out, w)
 
 
+#: csrc/encode_fp32.cu's kAhead: the tickets between a CTA of the 1D encoder and the block it asks
+#: the L2 for
+K_AHEAD = int(re.search(r"constexpr uint32_t kAhead = (\d+);", (_build.CSRC / "encode_fp32.cu").read_text())[1])
+
+
 def lookback_cases():
     """Inputs that stress the 1D encoder's look-back: one block, every length
     at its minimum (128) and at its maximum (4224), a border of 4095 words,
-    and more blocks than the card holds CTAs at once."""
+    and more blocks than the card holds CTAs at once; and the edges of its L2
+    prefetch with HACC's border of 1,035 words: kAhead - 1 and kAhead
+    blocks, where no CTA asks the L2 for a block, and kAhead + 1, where only
+    block 0's CTA asks, for the last block."""
     rng = np.random.default_rng(11)
     return {
+        **{f"kAhead {d:+d}: {K_AHEAD + d} blocks + 1035": normal(HC * (K_AHEAD + d) + 1035, rng)
+           for d in (-1, 0, 1)},
         "one block": rng.standard_normal(HC).astype(np.float32),
         "one zero block": np.zeros(HC, np.float32),
         "all zeros, 1024 blocks": np.zeros(HC * 1024, np.float32),
@@ -286,6 +303,86 @@ def test_cuda_decode_of_a_truncated_stream(cuda, label):
         out = codec_cuda._decode_blocks_fp32(full[:cut].clone(), data.size)
         torch.cuda.synchronize()
         assert torch.equal(out[: num_hc * HC], codec_torch.decode_blocks_ref(zeros_past, num_hc).reshape(-1)), cut
+
+
+@pytest.mark.cuda
+def test_cuda_encode_of_a_view_from_its_second_element(cuda):
+    """A caller's tensor viewed from its second element, 4 bytes past 16-byte
+    alignment, is copied once (``COPIES["align1d"]``) before the 1D encoder,
+    whose bulk copy takes 16-byte aligned blocks, launches once on the copy,
+    and its stream is still golden's byte for byte."""
+    data = lookback_cases()[f"kAhead +1: {K_AHEAD + 1} blocks + 1035"]
+    buf = torch.from_numpy(np.concatenate([np.zeros(1, np.float32), data])).to(cuda)
+    view = buf[1:]
+    assert view.data_ptr() % 16 == 4
+    copies, launches = codec_cuda.COPIES["align1d"], codec_cuda.LAUNCHES["encode"]
+    stream, length = codec_cuda.compress_device(view)
+    assert codec_cuda.COPIES["align1d"] == copies + 1 and codec_cuda.LAUNCHES["encode"] == launches + 1
+    g_stream, g_length = golden.compress(data)
+    assert int(length) == g_length
+    assert stream[:g_length].cpu().numpy().view(np.uint32).tobytes() == g_stream.tobytes()
+
+
+def one_pass_1d(blocks: np.ndarray, lane0_reads: bool = True) -> np.ndarray:
+    """The 1D encoder's pass from a block as its bulk copy leaves it in
+    shared memory to the transformed words (csrc/encode_fp32.cu's
+    transform_run_1d), lane by lane in numpy: thread t of 256 takes the 16
+    bytes q = t + 256k for k < 4, words 4q .. 4q + 3, each rotated left by
+    one; the rotated word before them is the lane before's last word
+    (``__shfl_up_sync`` by 1, which gives lane 0 its own), and lane 0 reads
+    word 4q - 1 of the block itself (none for q = 0: 0); each word less the
+    rotated word before it, then complement-negative. ``lane0_reads=False``
+    drops lane 0's read, so lane 0 keeps the shuffle's word. ``blocks``:
+    (nb, 4096) uint32. Returns the words in block order."""
+    nb = blocks.shape[0]
+    words = blocks.astype(np.uint32)
+    rot = (words << np.uint32(1)) | (words >> np.uint32(31))
+    regs = rot.reshape(nb, 4, 8, 32, 4)  # [block, k, warp, lane, j]: q = 256k + 32 warp + lane
+    shuffled = np.concatenate([regs[..., :1, 3], regs[..., :-1, 3]], axis=-1)  # lane l - 1's last word
+    q = np.arange(HC // 4).reshape(4, 8, 32)
+    if lane0_reads:
+        own = np.where(q > 0, rot[:, np.maximum(4 * q - 1, 0)], np.uint32(0))[..., 0]
+        shuffled[..., 0] = own
+    before = np.concatenate([shuffled[..., None], regs[..., :3]], axis=-1)
+    d = regs - before
+    return np.where(d >> np.uint32(31) == 1, d ^ np.uint32(0x7FFFFFFF), d).reshape(nb, HC)
+
+
+ONE_PASS_CASES = {
+    "normal values": lambda: normal((8, HC), 80).view(np.uint32),
+    "random bits": lambda: np.random.default_rng(81).integers(0, 2**32, (8, HC), dtype=np.uint64).astype(np.uint32),
+    "special floats": lambda: special_floats(normal(9 * HC, 82)).view(np.uint32).reshape(9, HC),
+    "all-equal blocks": lambda: np.repeat(np.array([0, 1, 0x80000000, 0xFFFFFFFF, 0x3FC00000], np.uint32),
+                                          HC).reshape(-1, HC),
+}
+
+
+@pytest.mark.parametrize("label", list(ONE_PASS_CASES))
+def test_the_1d_pass_model_gives_the_forward_transform(label):
+    blocks = ONE_PASS_CASES[label]()
+    with np.errstate(over="ignore"):
+        assert np.array_equal(one_pass_1d(blocks), golden.block_transform(blocks, 1))
+
+
+@pytest.mark.parametrize("label", ["normal values", "random bits"])
+def test_the_1d_pass_model_needs_lane_0s_read(label):
+    """Without lane 0's read of word 4q - 1, the first word of each 128
+    words that a warp takes at once (32 lanes of 16 bytes) takes the wrong
+    word before it: the shuffle gives lane 0 its own last word."""
+    blocks = ONE_PASS_CASES[label]()
+    with np.errstate(over="ignore"):
+        wrong = one_pass_1d(blocks, lane0_reads=False) != golden.block_transform(blocks, 1)
+    assert np.array_equal(np.flatnonzero(wrong.any(axis=0)), np.arange(0, HC, 128))
+
+
+def test_the_1d_pass_writes_a_warp_to_32_banks():
+    """The padded slots (one pad word after every 32) of a warp's 32 words
+    4q + j, for each j, fall in 32 different banks of shared memory."""
+    q = np.arange(HC // 4).reshape(-1, 32)
+    for j in range(4):
+        i = 4 * q + j
+        banks = (i + (i >> 5)) % 32
+        assert all(len(set(row)) == 32 for row in banks.tolist()), j
 
 
 # ------------------------------------------------------------ 2D/3D
