@@ -29,6 +29,7 @@ import importlib.util
 import json
 import math
 import re
+import statistics
 import sys
 import tempfile
 import time
@@ -41,7 +42,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from portbench import roofline, tracing
+from portbench import roofline, spans, tracing
 from portbench.reference import codec as reference
 
 PKG = Path(__file__).resolve().parent
@@ -299,32 +300,76 @@ def judge(run: Run, fields: list, device) -> dict:
 # ------------------------------------------------------------ tracing
 
 
-def _traced_stretch(run: Run, program, sweeps: int, peak):
-    """Profile ``sweeps`` sweeps of the window; the ``tracing.Record`` and
-    whether the codec's kernels in the trace match ``codec_cuda.LAUNCHES``."""
-    counter = getattr(getattr(program, "codec_cuda", None), "LAUNCHES", None)
-    before = sum(counter.values()) if counter is not None else None
-    first = len(run)
+def read_record(path, calls, peak) -> tracing.Record:
+    """The ``tracing.Record`` of the chrome trace at ``path`` for ``calls``
+    (``(direction, bound_bytes)`` in order), with the launches whose
+    operation the trace lost counted (``tracing.launches_without_op``) and
+    the program's spans and each call's clock shift attached
+    (``spans.attach``); the file is parsed once."""
+    events = tracing.load_events(path)
+    rec = tracing.build_record(*tracing.read_events(events), calls, peak)
+    rec.launches_without_op = tracing.launches_without_op(events)
+    return spans.attach(rec, spans.read_program_spans(events))
+
+
+def profile_sweeps(run: Run, sweeps: int):
+    """``sweeps`` sweeps of the window with the benchmark's spans, under
+    ``torch.profiler``; the profiler."""
     activities = [torch.profiler.ProfilerActivity.CPU]
     if run.clock.cuda:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     with torch.profiler.profile(activities=activities) as prof:
         for _ in range(sweeps):
             run.sweep(spans=True)
-    calls = [(c.direction, roofline.codec_bytes(c.in_bytes // _word_bytes(run), _word_bytes(run), c.length_u32))
-             for c in run.calls_from(first)]
+    return prof
+
+
+def read_profile(prof, run: Run, first: int, peak, keep=None) -> tracing.Record:
+    """``read_record`` of ``prof``'s trace for the calls of ``run`` from the
+    ``first``-th on; ``keep(path)``, where given, sees the exported trace
+    before it is deleted."""
+    word = run.likes[0].element_size()
+    calls = [(c.direction, roofline.codec_bytes(c.in_bytes // word, word, c.length_u32)) for c in run.calls_from(first)]
     with tempfile.TemporaryDirectory() as tmp:
         path = Path(tmp) / "trace.json"
         prof.export_chrome_trace(str(path))
-        spans, ops = tracing.read_chrome_trace(path)
-    rec = tracing.build_record(spans, ops, calls, peak)
+        if keep is not None:
+            keep(path)
+        return read_record(path, calls, peak)
+
+
+def _traced_stretch(run: Run, program, sweeps: int, peak):
+    """Profile ``sweeps`` sweeps of the window; the ``tracing.Record`` and
+    whether the codec's kernels in the trace match ``codec_cuda.LAUNCHES``."""
+    counter = getattr(getattr(program, "codec_cuda", None), "LAUNCHES", None)
+    before = sum(counter.values()) if counter is not None else None
+    first = len(run)
+    rec = read_profile(profile_sweeps(run, sweeps), run, first, peak)
     kernels = sum(any(k in o.name for k in CODEC_KERNELS) for o in rec.ops)
     launched = sum(counter.values()) - before if counter is not None else kernels
     return rec, kernels == launched, (kernels, launched)
 
 
-def _word_bytes(run: Run) -> int:
-    return run.likes[0].element_size()
+def traced_device(rec: tracing.Record) -> dict:
+    """What the traced line adds to ``device``: ``busy_s`` and ``window_s``
+    (``tracing.busy_and_window``), ``clock_shift_us`` (the median and the
+    most over the calls of ``spans.call_shifts``), ``ops_without_launch``
+    and ``launches_without_op``."""
+    busy, window = tracing.busy_and_window(rec)
+    shifts = rec.call_shifts or [0.0]
+    return {"busy_s": busy, "window_s": window,
+            "clock_shift_us": {"median": 1e6 * statistics.median(shifts), "max": 1e6 * max(shifts)},
+            "ops_without_launch": rec.ops_without_launch, "launches_without_op": rec.launches_without_op}
+
+
+def traced_breakdown(rec: tracing.Record) -> dict:
+    """``tracing.breakdown`` and, where the program's spans are there,
+    ``idle_by_host`` (``spans.idle_by_host``)."""
+    out = tracing.breakdown(rec)
+    by_host = spans.idle_by_host(rec)
+    if by_host is not None:
+        out["idle_by_host"] = by_host
+    return out
 
 
 def queued_kernel_seconds(program, likes, items, device, direction: str) -> float:
@@ -363,6 +408,7 @@ class Result:
     ratio: float
     breakdown: dict | None = None
     notes: list = field(default_factory=list)
+    record: tracing.Record | None = None  # the traced stretch's, with ``--trace 1``
 
 
 def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool, device, program,
@@ -383,7 +429,7 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool, de
     sync(device)
     rng = np.random.default_rng([seed, 1])
     run = Run(entry, items, likes, Clock(device), mix["sample_per_field"], rng)
-    notes = []
+    notes, record = [], None
     try:
         # every shape, the card's clocks up, and the allocator's blocks for the samples held
         warm_end, sweeps = time.perf_counter() + mix["warm_seconds"], 0
@@ -400,7 +446,6 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool, de
         gc.freeze()  # what set-up made is not scanned again by the collections inside the window
         run.setup_s = process_age_s()
         t_end = time.perf_counter() + seconds
-        record = None
         t0 = time.perf_counter()
         run.sweep()
         sweep_s = time.perf_counter() - t0
@@ -433,8 +478,8 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool, de
                         "count": cell["chips"], "memory_peak_bytes": peak_bytes}
     out_breakdown = None
     if trace and record is not None:
-        dev["busy_s"], dev["window_s"] = tracing.busy_and_window(record)
-        out_breakdown = tracing.breakdown(record)
+        dev.update(traced_device(record))
+        out_breakdown = traced_breakdown(record)
     for name, (m, read) in readers.items():  # a reader that finds nothing returns None: the metric is left out
         value = read(record if trace else run) if not trace or record is not None else None
         if value is not None:
@@ -442,4 +487,5 @@ def run_cell(bench: dict, cell: dict, seed: int, seconds: float, trace: bool, de
     comp = [c for c in run.calls if c.direction == "compress"]
     ratio = (sum(4 * c.length_u32 for c in comp) / sum(c.in_bytes for c in comp)) if comp else float("nan")
     return Result(correct, attempted, run.failed, metrics, dev,
-                  {k: {"value": v, "limit": lim} for k, (v, lim) in checks.items()}, ratio, out_breakdown, notes)
+                  {k: {"value": v, "limit": lim} for k, (v, lim) in checks.items()}, ratio, out_breakdown, notes,
+                  record)

@@ -13,25 +13,36 @@ functions here read them.
 The card's timestamps run ahead of the host's: on an H100 a kernel's start
 read up to some 40 us before the host's launch of it (``tracing``). Placing
 an operation by correlation id needs no common clock, but laying the card's
-idle time against the host's spans does. ``clock_shift`` is the least
-constant ``d >= 0`` that puts every operation with a launch at or after it;
-the readers place the card's operations at ``start + d`` on the host's
-clock. One constant per trace: the queue time between a launch and its
-start is only as good as that.
+idle time against the host's spans does. The offset drifts through a
+stretch, along a line: on an H100 by up to 7.3 us a ms either way, in 6 of
+40 stretches (4,400 us over 0.6 s in one). A call's own lag, the most by
+which one of its operations starts before its launch, is the offset less
+that operation's wait on the card's queue; taken alone as the call's
+shift, it would place a call of one operation exactly at its launch and
+wipe out its wait. ``call_shifts`` fits one line to the calls' lags
+instead: its slope the median of the slopes between calls half the
+stretch apart (none under ``SLOPE_CALLS`` calls with a launch), its level the
+largest lag less the slope's part, among those at most ``QUEUE`` above
+their median. A lag above that is not the clock but a call whose
+operations read early by themselves, and that call takes its own lag.
+Each call's shift is the line's value at its start, at least its own lag
+and at least 0. The readers place a call's operations at ``start + d`` on
+the host's clock. Limits: the shortest wait of the stretch is taken as
+nought; a call that reads early by ``QUEUE`` or less lifts the line for
+every call; an offset below 0 (the card's clock late) is read as 0.
 
 A ``tracing.Record`` carries what the readers need as two attributes,
-``program_spans`` (``read_program_spans``) and ``clock_shift`` (seconds),
-set by ``attach``; each reader returns None on a record without them.
-``per_call`` splits each call's time by what the host was doing; the
-readers average it over a direction's calls.
+``program_spans`` (``read_program_spans``) and ``call_shifts`` (seconds,
+one a call), set by ``attach``; each reader returns None on a record
+without them. ``per_call`` splits each call's time by what the host was
+doing; the readers average it over a direction's calls.
 """
 
 from __future__ import annotations
 
 import bisect
-import json
+import statistics
 from dataclasses import dataclass
-from pathlib import Path
 
 from portbench import tracing
 
@@ -40,14 +51,22 @@ PREFIX = "ndzip."
 LAUNCH = "ndzip.launch"
 #: the span of the codec's API call, by direction
 API = {"compress": "ndzip.compress_device", "decompress": "ndzip.decompress_device"}
+#: seconds: the most by which the line may place a call's earliest
+#: operation after its launch; each call of the harness ends in a
+#: synchronisation, so the queue is empty at its launch (medians of 6 to
+#: 16 us and waits up to 65 us read on an H100)
+QUEUE = 100e-6
+#: the fewest calls with a launch from which the line takes a slope: between
+#: a few calls the waits' spread, some 10 us, reads as a slope (a stretch
+#: holds 500 calls or more)
+SLOPE_CALLS = 100
 
 
-def read_program_spans(path) -> list:
-    """The program's spans (``ndzip.*``) of a chrome trace written by
-    ``torch.profiler.profile.export_chrome_trace``, as ``tracing.Span``,
-    sorted by start."""
+def read_program_spans(events) -> list:
+    """The program's spans (``ndzip.*``) of a chrome trace's events
+    (``tracing.load_events``), as ``tracing.Span``, sorted by start."""
     spans = []
-    for e in json.loads(Path(path).read_text()).get("traceEvents", []):
+    for e in events:
         if e.get("ph") == "X" and e.get("cat") == "user_annotation" and e.get("name", "").startswith(PREFIX):
             start = float(e["ts"]) * 1e-6
             spans.append(tracing.Span(e["name"], start, start + float(e.get("dur", 0)) * 1e-6))
@@ -58,15 +77,46 @@ def clock_shift(ops) -> float:
     """Seconds ``d >= 0``: the most by which an operation's start on the
     card's clock lies before its launch on the host's, over the operations
     that have a launch; 0 where none does."""
-    return max([0.0] + [o.launch - o.start for o in ops if o.launch is not None])
+    return max(0.0, _lag(ops) or 0.0)
 
 
-def attach(rec, program_spans, ops):
-    """Give ``rec`` the program's spans and the clock shift of ``ops`` (every
-    operation of the trace, as ``tracing.read_chrome_trace`` gives them)."""
+def _lag(ops):
+    """Seconds: the most by which an operation of ``ops`` starts before its
+    launch (below 0 where each starts after it), or None where none has a
+    launch."""
+    lags = [o.launch - o.start for o in ops if o.launch is not None]
+    return max(lags) if lags else None
+
+
+def call_shifts(rec) -> list:
+    """Seconds, one a call of ``rec``: the line fitted to the calls' lags
+    at the call's start, at least the call's own lag and 0 (see the
+    module's docstring)."""
+    lags = [_lag(c.ops) for c in rec.calls]
+    known = [(c.start, lag) for c, lag in zip(rec.calls, lags) if lag is not None]
+    if not known:
+        return [0.0] * len(rec.calls)
+    slope = 0.0
+    if len(known) >= SLOPE_CALLS:  # each call against the call half the stretch on
+        slope = statistics.median((b - a) / (t - s) for (s, a), (t, b) in zip(known, known[len(known) // 2:]))
+    t0 = known[0][0]
+    rest = [lag - slope * (t - t0) for t, lag in known]
+    level = max(r for r in rest if r <= statistics.median(rest) + QUEUE)
+    return [max(0.0, level + slope * (c.start - t0), 0.0 if lag is None else lag) for c, lag in zip(rec.calls, lags)]
+
+
+def attach(rec, program_spans):
+    """Give ``rec`` the program's spans and each call's clock shift."""
     rec.program_spans = program_spans
-    rec.clock_shift = clock_shift(ops)
+    rec.call_shifts = call_shifts(rec)
     return rec
+
+
+def shifted(rec, op) -> tuple[float, float]:
+    """``op``'s start and end on the host's clock: shifted by its call's
+    clock shift."""
+    d = rec.call_shifts[op.call]
+    return op.start + d, op.end + d
 
 
 class _Merged:
@@ -105,9 +155,8 @@ def _by_call(rec) -> list:
 
 def _busy(rec) -> _Merged:
     """The card's busy intervals on the host's clock: every operation of the
-    stretch shifted by ``rec.clock_shift``."""
-    d = rec.clock_shift
-    return _Merged((o.start + d, o.end + d) for o in rec.ops)
+    stretch shifted by its call's clock shift."""
+    return _Merged(shifted(rec, o) for o in rec.ops)
 
 
 @dataclass

@@ -9,6 +9,7 @@ Marked ``cuda``: the cut cell on the card."""
 import json
 
 import pytest
+from cellchecks import E2E, SHARED_READERS, check_entry_metrics, check_ops_a_call  # the checks every cell shares
 from test_portbench_msg_bt import _flipping, _record  # the same stream, field and trace doubles
 
 import ndzip_tpu_torch
@@ -59,7 +60,7 @@ def test_a_sound_run_is_correct(bench, root, trace):
     if trace:  # no codec kernel on the CPU: the fp32 1D metrics are left out, not 0
         assert not set(READERS) & set(r.metrics)
     else:
-        assert {"compress_gbps", "decompress_gbps", "setup_s"} == set(r.metrics)
+        assert E2E == set(r.metrics)
 
 
 @pytest.mark.parametrize("seed", [3, 2**32 + 19])
@@ -93,13 +94,7 @@ def test_the_benchmark_entry(bench):
     assert cfg["reduced"] == [] and cfg["source"] == entry["source"] and len(entry["source"]) <= 200
     (axis,) = cfg["formula"]["axes"]  # bench.py's main-path formula: sin(i * 1e-4) + 1e-3 N(0, 1)
     assert axis["fn"] == "sin" and axis["span"] == pytest.approx(280953867 * 1e-4) and cfg["formula"]["noise"] == 1e-3
-    e2e = {m["name"] for m in harness.cell_metrics(bench, "end_to_end", CELL)}
-    assert e2e == {"compress_gbps", "decompress_gbps", "setup_s"}
-    layers = {m["name"]: m for m in harness.cell_metrics(bench, "per_layer", CELL)}
-    assert set(layers) == set(READERS)
-    for name, m in layers.items():
-        assert m["workloads"] == [CELL] and m["moves"] == name.rsplit(".", 1)[1] + "_gbps"
-        assert m["layer"] == ("csrc kernels (B1, B2)" if name.startswith("kernel_roofline") else "codec_cuda glue")
+    check_entry_metrics(bench, CELL, READERS, "csrc kernels (B1, B2)")
 
 
 B1 = "ndzip::encode_blocks(unsigned int const*, unsigned long, unsigned long, unsigned long*, unsigned int*, int*)"
@@ -140,13 +135,9 @@ def test_the_cut_cell_on_the_card(bench, root, cuda):
         r = harness.run_cell(bench, _cell(bench), 2**31 + 7, 0.5, trace, cuda, ndzip_tpu_torch, root=root)
         assert r.correct, r.checks
         if trace:
-            assert set(READERS) <= set(r.metrics) and r.device["busy_s"] > 0
+            assert set(READERS) | set(SHARED_READERS) <= set(r.metrics) and r.device["busy_s"] > 0
             for d in ("compress", "decompress"):
                 assert 0 < r.metrics[f"kernel_roofline_pct.fp32_1d.{d}"]["value"] <= 105
-            # a call of the cut cell takes some 50 us, and in a trace of a few thousand of them one operation
-            # can miss its call (seen on an H100 in msg_bt's cut cell: 2.9993 a call); a copy of the input
-            # or a memset left out would move the reading by a whole operation a call
-            assert r.metrics["device_ops_per_call.fp32_1d.compress"]["value"] == pytest.approx(3, abs=0.01)
-            assert r.metrics["device_ops_per_call.fp32_1d.decompress"]["value"] == pytest.approx(1, abs=0.01)
+            check_ops_a_call(r, 3, 1)
     assert not any(codec_cuda.COPIES.values())
     assert {k for k, n in codec_cuda.LAUNCHES.items() if n} == {"encode", "decode"}

@@ -12,6 +12,8 @@ import types
 import pytest
 import torch
 
+from cellchecks import E2E, SHARED_READERS, check_entry_metrics  # the checks every cell shares
+
 import ndzip_tpu_torch
 from portbench import control, harness, tracing
 
@@ -51,7 +53,7 @@ def test_a_sound_run_is_correct(bench, root, trace):
     if trace:  # no codec kernel on the CPU: the fp64 metrics are left out, not 0
         assert not set(READERS) & set(r.metrics)
     else:
-        assert {"compress_gbps", "decompress_gbps", "setup_s"} == set(r.metrics)
+        assert E2E == set(r.metrics)
 
 
 @pytest.mark.parametrize("seed", [1, 2**32 + 17])
@@ -105,13 +107,7 @@ def test_the_benchmark_entry(bench):
     cfg = harness.load_config(CONFIG)
     assert cfg["shape"] == [256, 384, 384] and cfg["dtype"] == "float64" and cfg["fields"] == 7
     assert cfg["reduced"] == [] and cfg["source"] == entry["source"] and len(entry["source"]) <= 200
-    e2e = {m["name"] for m in harness.cell_metrics(bench, "end_to_end", CELL)}
-    assert e2e == {"compress_gbps", "decompress_gbps", "setup_s"}
-    layers = {m["name"]: m for m in harness.cell_metrics(bench, "per_layer", CELL)}
-    assert set(layers) == set(READERS)
-    for name, m in layers.items():
-        assert m["workloads"] == [CELL] and m["moves"] == name.rsplit(".", 1)[1] + "_gbps"
-        assert m["layer"] == ("csrc kernels (B6, B8)" if name.startswith("kernel_roofline") else "codec_cuda glue")
+    check_entry_metrics(bench, CELL, READERS, "csrc kernels (B6, B8)")
 
 
 def _record(kernels):
@@ -158,6 +154,6 @@ def test_the_cut_cell_on_the_card(bench, root, cuda):
         r = harness.run_cell(bench, _cell(bench), 2**31 + 7, 0.5, trace, cuda, ndzip_tpu_torch, root=root)
         assert r.correct, r.checks
         if trace:
-            assert set(READERS) <= set(r.metrics) and r.device["busy_s"] > 0
+            assert set(READERS) | set(SHARED_READERS) <= set(r.metrics) and r.device["busy_s"] > 0
             assert 0 < r.metrics["kernel_roofline_pct.fp64.compress"]["value"] <= 105
     assert not any(codec_cuda.COPIES.values())

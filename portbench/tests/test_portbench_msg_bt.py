@@ -12,6 +12,7 @@ import types
 
 import pytest
 import torch
+from cellchecks import E2E, SHARED_READERS, check_entry_metrics, check_ops_a_call  # the checks every cell shares
 
 import ndzip_tpu_torch
 from ndzip_tpu_torch import format as fmt
@@ -22,8 +23,6 @@ CELL, CONFIG = "msg_bt.device", "msg_bt_f64_1d"
 LENGTHS = {"no_border": 4 * 4096, "border": 3 * 4096 + 2295}
 READERS = [f"{m}.fp64_1d.{d}" for m in ("kernel_roofline_pct", "device_ops_per_call")
            for d in ("compress", "decompress")]
-
-
 @pytest.fixture(params=list(LENGTHS))
 def root(tiny_root, request):
     n = LENGTHS[request.param]
@@ -60,7 +59,7 @@ def test_a_sound_run_is_correct(bench, root, trace):
     if trace:  # no codec kernel on the CPU: the fp64 1D metrics are left out, not 0
         assert not set(READERS) & set(r.metrics)
     else:
-        assert {"compress_gbps", "decompress_gbps", "setup_s"} == set(r.metrics)
+        assert E2E == set(r.metrics)
 
 
 @pytest.mark.parametrize("seed", [3, 2**32 + 19])
@@ -116,13 +115,7 @@ def test_the_benchmark_entry(bench):
     cfg = harness.load_config(CONFIG)
     assert cfg["shape"] == [33298679] and cfg["dtype"] == "float64" and cfg["fields"] == 1
     assert cfg["reduced"] == [] and cfg["source"] == entry["source"] and len(entry["source"]) <= 200
-    e2e = {m["name"] for m in harness.cell_metrics(bench, "end_to_end", CELL)}
-    assert e2e == {"compress_gbps", "decompress_gbps", "setup_s"}
-    layers = {m["name"]: m for m in harness.cell_metrics(bench, "per_layer", CELL)}
-    assert set(layers) == set(READERS)
-    for name, m in layers.items():
-        assert m["workloads"] == [CELL] and m["moves"] == name.rsplit(".", 1)[1] + "_gbps"
-        assert m["layer"] == ("csrc kernels (B5, B7)" if name.startswith("kernel_roofline") else "codec_cuda glue")
+    check_entry_metrics(bench, CELL, READERS, "csrc kernels (B5, B7)")
 
 
 def _record(kernels, decode_kernels=None):
@@ -177,9 +170,8 @@ def test_the_cut_cell_on_the_card(bench, root, cuda):
         r = harness.run_cell(bench, _cell(bench), 2**31 + 7, 0.5, trace, cuda, ndzip_tpu_torch, root=root)
         assert r.correct, r.checks
         if trace:
-            assert set(READERS) <= set(r.metrics) and r.device["busy_s"] > 0
+            assert set(READERS) | set(SHARED_READERS) <= set(r.metrics) and r.device["busy_s"] > 0
             assert 0 < r.metrics["kernel_roofline_pct.fp64_1d.compress"]["value"] <= 105
-            assert r.metrics["device_ops_per_call.fp64_1d.compress"]["value"] == 3
-            assert r.metrics["device_ops_per_call.fp64_1d.decompress"]["value"] == 1
+            check_ops_a_call(r, 3, 1)
     assert not any(codec_cuda.COPIES.values())
     assert {k for k, n in codec_cuda.LAUNCHES.items() if n} == {"encode64", "decode64"}

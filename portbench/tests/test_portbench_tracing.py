@@ -13,6 +13,11 @@ PEAK = 3.35e12
 US = 1e-6
 
 
+def _read(path):
+    """``(spans, ops)`` of the chrome trace at ``path``."""
+    return tracing.read_events(tracing.load_events(path))
+
+
 def _x(cat, name, ts, dur, **args):
     return {"ph": "X", "cat": cat, "name": name, "pid": 0, "tid": 1, "ts": ts, "dur": dur, "args": args}
 
@@ -49,7 +54,7 @@ def _trace(tmp_path, skew=0.0):
 
 @pytest.fixture(params=[0.0, -40.0, 30.0], ids=["aligned", "card-early", "card-late"])
 def rec(tmp_path, request):
-    spans, ops = tracing.read_chrome_trace(_trace(tmp_path, request.param))
+    spans, ops = _read(_trace(tmp_path, request.param))
     assert [s.name for s in spans] == ["portbench.compress", "portbench.decompress"]
     assert len(ops) == 5
     return tracing.build_record(spans, ops, [("compress", 670_000), ("decompress", 670_000)], PEAK)
@@ -92,7 +97,7 @@ def test_busy_window_and_breakdown(rec):
 
 
 def test_spans_that_do_not_match_the_calls_are_refused(tmp_path):
-    spans, ops = tracing.read_chrome_trace(_trace(tmp_path))
+    spans, ops = _read(_trace(tmp_path))
     with pytest.raises(ValueError):
         tracing.build_record(spans, ops, [("compress", 1)], PEAK)
     with pytest.raises(ValueError):
@@ -113,7 +118,7 @@ def test_the_peak_table():
 def test_a_trace_recorded_on_the_card():
     """Two compress and two decompress calls of a 1800x3600 fp32 field,
     traced on an NVIDIA H100 80GB HBM3 as the harness traces them."""
-    spans, ops = tracing.read_chrome_trace(Path(__file__).parent / "data" / "h100_cesm_trace.json")
+    spans, ops = _read(Path(__file__).parent / "data" / "h100_cesm_trace.json")
     calls = [("compress", 6_480_000 * 4 + 4 * 4_360_000), ("decompress", 6_480_000 * 4 + 4 * 4_360_000)] * 2
     rec = tracing.build_record(spans, ops, calls, PEAK)
     assert [len(c.ops) for c in rec.calls] == [3, 1, 3, 1]

@@ -6,19 +6,22 @@ from the root of a checkout, on the card. It sets the cell up as ``run.py``
 does (the fields from the seed, the warm sweeps), then runs ``--stretches``
 pairs of stretches of the mix's ``trace_seconds`` each, whole sweeps, one
 caller: an untraced one, with no span, as the window runs, then a traced one
-under ``torch.profiler`` with the benchmark's and the program's spans. Of
-each traced stretch it reads the per-layer metrics of ``metrics/`` (those
-``tracing`` reads and those ``spans`` reads), ``clock_shift_us`` and
-``idle_by_host``, gives the calls per second of both stretches (what tracing
-costs while on), and checks per call that the spans nest as ``spans`` reads
-them. Last it judges the calls' outputs against the plain reference as
-``run.py`` does. ``--out DIR`` writes the first traced stretch's calls
-``--skip`` to ``--skip + --keep`` as a chrome trace
+under ``torch.profiler`` with the benchmark's and the program's spans. Each
+traced stretch is read into a record as ``run.py --trace 1`` reads its own
+(``harness.read_profile``), and gives the per-layer metrics of ``metrics/``
+(those ``tracing`` reads and those ``spans`` reads) and what the traced line
+adds to ``device`` and ``breakdown``. Beyond ``run.py``, the tool gives the
+calls per second of both stretches (what tracing costs while on), checks
+per call that the spans nest as ``spans`` reads them, times a span with
+no profiler (``span_cost_us``), and splits a call's host time untraced, by
+the spans' own cuts, with no profiler and no span (``host_split_us``).
+Last it judges the calls' outputs against the plain reference as
+``run.py`` does. ``--out DIR`` writes the first
+traced stretch's calls ``--skip`` to ``--skip + --keep`` as a chrome trace
 (``DIR/<workload>_spans.json``), the events of those calls alone.
 
 The last line on stdout is one JSON object. It exits nonzero without a CUDA
-device. ``run.py --trace 1`` reads none of this: its harness hands the
-readers no program span (``spans`` says what it would take).
+device.
 """
 
 from __future__ import annotations
@@ -27,7 +30,6 @@ import argparse
 import json
 import math
 import sys
-import tempfile
 import time
 import timeit
 from pathlib import Path
@@ -54,12 +56,7 @@ def _sweeps(run, sweeps: int, traced: bool):
     first, prof = len(run), None
     t0 = time.perf_counter()
     if traced:
-        activities = [torch.profiler.ProfilerActivity.CPU]
-        if run.clock.cuda:
-            activities.append(torch.profiler.ProfilerActivity.CUDA)
-        with torch.profiler.profile(activities=activities) as prof:
-            for _ in range(sweeps):
-                run.sweep(spans=True)
+        prof = harness.profile_sweeps(run, sweeps)
     else:
         for _ in range(sweeps):
             run.sweep()
@@ -93,7 +90,7 @@ def call_checks(rec) -> dict:
     card's (``tracing.idle_pct`` of the call alone). Counts the calls that
     break each, and the operations that start before their launch on the
     shifted clock."""
-    late = sum(o.launch is not None and o.start + rec.clock_shift < o.launch - EPS for o in rec.ops)
+    late = sum(o.launch is not None and spans.shifted(rec, o)[0] < o.launch - EPS for o in rec.ops)
     over = idle = 0
     for c, t in zip(rec.calls, spans.per_call(rec) or ()):
         over += t.api_s > 0 and t.glue_s + t.launch_s > t.api_s + EPS
@@ -105,34 +102,80 @@ def call_checks(rec) -> dict:
 
 def read_stretch(run, prof, first: int, peak, out: Path | None, skip: int, keep: int) -> dict:
     """The readings of one traced stretch."""
-    with tempfile.TemporaryDirectory() as tmp:
-        path = Path(tmp) / "trace.json"
-        prof.export_chrome_trace(str(path))
-        host_spans, ops = tracing.read_chrome_trace(path)
-        program_spans = spans.read_program_spans(path)
-        if out is not None:
-            out.parent.mkdir(parents=True, exist_ok=True)
-            cut(path, out, skip, keep)
-    word = run.likes[0].element_size()
-    calls = [(c.direction, roofline.codec_bytes(c.in_bytes // word, word, c.length_u32))
-             for c in run.calls_from(first)]
-    rec = spans.attach(tracing.build_record(host_spans, ops, calls, peak), program_spans, ops)
+    def keep_calls(path):
+        out.parent.mkdir(parents=True, exist_ok=True)
+        cut(path, out, skip, keep)
+
+    rec = harness.read_profile(prof, run, first, peak, None if out is None else keep_calls)
     kernels = sum(any(k in o.name for k in harness.CODEC_KERNELS) for o in rec.ops)
     metrics = {}
     for name in METRICS:
         value = harness.load_reader("metrics", name)(rec)
         if value is not None:
             metrics[name] = value
-    busy, window = tracing.busy_and_window(rec)
-    b = tracing.breakdown(rec)
-    b["idle_by_host"] = spans.idle_by_host(rec)
-    lags = sorted((o.start - o.launch, o.name, o.launch - rec.window[0]) for o in ops if o.launch is not None)
-    return {"metrics": metrics, "clock_shift_us": 1e6 * rec.clock_shift, "busy_s": busy, "window_s": window,
-            # the card's start less the host's launch, unshifted: the least sets the shift
+    lags = sorted((o.start - o.launch, o.name, o.launch - rec.window[0]) for o in rec.ops if o.launch is not None)
+    return {"metrics": metrics, **harness.traced_device(rec),
+            # the card's start less the host's launch, unshifted: the least sets the largest call's shift
             "start_after_launch_us": [1e6 * lags[k][0] for k in (0, 1, len(lags) // 2, -1)] if lags else None,
             "shift_set_by": [lags[0][1][:48], lags[0][2]] if lags else None,
-            "idle_s": spans.idle_s(rec), "program_spans": len(program_spans), "codec_kernels": kernels,
-            "checks": call_checks(rec), "breakdown": b}
+            "idle_s": spans.idle_s(rec), "program_spans": len(rec.program_spans), "codec_kernels": kernels,
+            "checks": call_checks(rec), "breakdown": harness.traced_breakdown(rec)}
+
+
+def host_split_us(run, program, sweeps: int) -> dict | None:
+    """Host us a call of each direction spends through ``sweeps`` untraced
+    sweeps, where the spans would cut it: ``call`` in the entry's call (the
+    benchmark's span), ``api`` in ``codec_cuda.compress_device`` or
+    ``decompress_device`` (the API span), ``launch`` in ``codec_cuda._launch``
+    (the ``ndzip.launch`` spans) and ``glue``, the API less its launches;
+    with ``calls``, and ``calls_per_s``. Timed by ``time.perf_counter``
+    wrapped around those functions for the sweeps, no profiler recording;
+    ``timer_us`` is what one wrapper adds to a call. None where the program
+    has no ``codec_cuda``."""
+    cc = getattr(program, "codec_cuda", None)
+    if cc is None:
+        return None
+    total = {d: {"call": 0.0, "api": 0.0, "launch": 0.0, "calls": 0} for d in harness.DIRECTIONS}
+    now = [harness.DIRECTIONS[0]]
+
+    def timed(fn, key, direction=None):
+        def call(*args, **kwargs):
+            if direction is not None:
+                now[0] = direction
+            t0 = time.perf_counter()
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                total[now[0]][key] += time.perf_counter() - t0
+                total[now[0]]["calls"] += key == "call"
+        return call
+
+    places = [(cc, "_launch", "launch", None)] + [(cc, f"{d}_device", "api", d) for d in harness.DIRECTIONS] \
+        + [(run.entry, d, "call", d) for d in harness.DIRECTIONS]
+    saved = [getattr(obj, name) for obj, name, _, _ in places]
+    try:
+        for (obj, name, key, direction), fn in zip(places, saved):
+            setattr(obj, name, timed(fn, key, direction))
+        t0 = time.perf_counter()
+        for _ in range(sweeps):
+            run.sweep()
+        seconds = time.perf_counter() - t0
+    finally:
+        for (obj, name, _, _), fn in zip(places, saved):
+            if obj is run.entry:
+                delattr(obj, name)  # the entry's methods were its class's
+            else:
+                setattr(obj, name, fn)
+    out = {}
+    for d, t in total.items():
+        n = max(t["calls"], 1)
+        out[d] = {k: 1e6 * t[k] / n for k in ("call", "api", "launch")}
+        out[d].update(glue=out[d]["api"] - out[d]["launch"], calls=t["calls"])
+    bare = timed(lambda: None, "launch")
+    out["calls_per_s"] = sum(t["calls"] for t in total.values()) / seconds
+    out["timer_us"] = 1e6 * (min(timeit.repeat(bare, number=20_000, repeat=5))
+                             - min(timeit.repeat(lambda: None, number=20_000, repeat=5))) / 20_000
+    return out
 
 
 def span_cost_us(n: int = 100_000) -> dict:
@@ -185,9 +228,11 @@ def trace_cell(cell: dict, seed: int, device, program, stretches: int = 3, out: 
         r["calls_per_s"] = {"untraced": plain_calls / plain_s, "traced": calls / seconds}
         r["tracing_cost_pct"] = 100.0 * (1.0 - r["calls_per_s"]["traced"] / r["calls_per_s"]["untraced"])
         readings.append(r)
+    split = host_split_us(run, program, sweeps)
     del entry, run.entry
     checks = harness.judge(run, fields, device)
     return {"workload": cell["name"], "seed": seed, "sweeps_a_stretch": sweeps, "stretches": readings,
+            "host_split_us": split,
             "correct": all(v <= lim for v, lim in checks.values()),
             "checks": {k: {"value": v, "limit": lim} for k, (v, lim) in checks.items()}}
 

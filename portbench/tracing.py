@@ -10,7 +10,9 @@ runtime call that launched it (``cudaLaunchKernel``, ``cudaMemsetAsync``,
 timestamps are not the host's: on an H100 a kernel's start read up to some
 40 us before the host's launch of it, as long as a gap between two calls,
 so an operation is never placed by its own time on the host's spans. Only
-where its launch is missing from the trace does its middle place it.
+where its launch is missing from the trace does its middle place it; the
+record counts those operations (``ops_without_launch``), and the launches
+whose operation the trace lost (``launches_without_op``).
 
 Durations are read on one clock each: an operation's on the card's, a
 span's on the host's. The readers under ``portbench/metrics/`` call the
@@ -30,6 +32,8 @@ DEVICE_CATS = ("kernel", "gpu_memset", "gpu_memcpy")
 COPY_CAT = "gpu_memcpy"
 #: chrome-trace categories of the host's calls into the CUDA runtime and driver
 LAUNCH_CATS = ("cuda_runtime", "cuda_driver")
+#: parts of the names of those calls that put work on the card: kernels, memsets, copies
+ENQUEUE = ("Launch", "Memset", "Memcpy")
 #: the prefix of the benchmark's own spans
 SPAN_PREFIX = "portbench."
 
@@ -74,14 +78,23 @@ class Record:
     #: seconds of non-copy device work per direction where the trace lost
     #: records and CUDA events stood in (see ``harness``)
     kernel_seconds: dict = field(default_factory=dict)
+    #: device operations of the trace whose launch record is missing, placed
+    #: by their middle on the card's clock or in no call
+    ops_without_launch: int = 0
+    #: launches of the trace whose device operation is missing (``launches_without_op``)
+    launches_without_op: int = 0
 
 
-def read_chrome_trace(path) -> tuple[list, list]:
-    """``(spans, ops)`` of a chrome trace written by
-    ``torch.profiler.profile.export_chrome_trace``: the benchmark's spans
+def load_events(path) -> list:
+    """The events of a chrome trace written by
+    ``torch.profiler.profile.export_chrome_trace``."""
+    return json.loads(Path(path).read_text()).get("traceEvents", [])
+
+
+def read_events(events) -> tuple[list, list]:
+    """``(spans, ops)`` of a chrome trace's events: the benchmark's spans
     and the card's operations, each with the host's time of its launch
     where the trace has it, each sorted by start."""
-    events = json.loads(Path(path).read_text()).get("traceEvents", [])
     spans, ops, launches = [], [], {}
     for e in events:
         if e.get("ph") != "X":
@@ -102,11 +115,21 @@ def read_chrome_trace(path) -> tuple[list, list]:
     return spans, sorted((op for op, _ in ops), key=lambda o: o.start)
 
 
+def launches_without_op(events) -> int:
+    """The calls into the CUDA runtime or driver among a chrome trace's
+    events that put work on the card (``ENQUEUE``) and whose correlation id
+    no device operation of the trace carries: operations the trace lost."""
+    device = {(e.get("args") or {}).get("correlation") for e in events
+              if e.get("ph") == "X" and e.get("cat") in DEVICE_CATS}
+    return sum(e.get("ph") == "X" and e.get("cat") in LAUNCH_CATS and any(k in e.get("name", "") for k in ENQUEUE)
+               and (e.get("args") or {}).get("correlation") not in device for e in events)
+
+
 def build_record(spans, ops, calls, peak_bytes_per_s) -> Record:
     """Match the spans to ``calls`` (``(direction, bound_bytes)`` of the
-    stretch in order) and give each call the operations launched in its
-    span. Raises ValueError where the spans and the calls do not match one
-    to one."""
+    stretch in order), give each call the operations launched in its span
+    and count the operations with no launch. Raises ValueError where the
+    spans and the calls do not match one to one."""
     if len(spans) != len(calls):
         raise ValueError(f"the trace holds {len(spans)} spans of the benchmark, the stretch made {len(calls)} calls")
     traced = []
@@ -124,7 +147,8 @@ def build_record(spans, ops, calls, peak_bytes_per_s) -> Record:
             traced[i].ops.append(op)
             placed.append(op)
     window = (traced[0].start, traced[-1].end) if traced else (0.0, 0.0)
-    return Record(traced, placed, window, peak_bytes_per_s)
+    return Record(traced, placed, window, peak_bytes_per_s,
+                  ops_without_launch=sum(op.launch is None for op in ops))
 
 
 def _union(intervals) -> list:
