@@ -49,7 +49,7 @@ test-cuda:
 		tests/test_torch_benchmark.py tests/test_torch_bench.py tests/test_torch_spans.py \
 		tests/test_torch_plans.py tests/test_torch_copies.py tests/test_torch_codec_nd.py \
 		tests/test_torch_codec64.py tests/test_torch_cli.py tests/test_torch_multihost.py \
-		tests/test_torch_examples.py -m cuda -q
+		tests/test_torch_examples.py tests/test_torch_host_times.py -m cuda -q
 
 bench-torch:
 	python -m ndzip_tpu_torch.bench

@@ -306,7 +306,7 @@ def test_a_decode_launch_counts_the_3d_store_its_kernel_takes(fake_lib, monkeypa
     monkeypatch.setattr(codec_cuda, "STORES3D", dict(NO_LOADS))
     plan = codec_cuda._plan("decode", shape, words, 0)._replace(device=torch.device("cpu"))  # no card here
     stream = torch.zeros(plan.header, dtype=I32)
-    outs = [codec_cuda._decode(plan, stream, words) for _ in range(3)]
+    outs = [codec_cuda._decode(plan, stream, words)[0] for _ in range(3)]  # (tensor, launch ns)
     assert launched == [out.data_ptr() for out in outs]
     assert all(out.data_ptr() % 16 == 0 and out.shape == shape for out in outs)
     assert codec_cuda.STORES3D == dict(NO_LOADS, **({store: 3} if store else {}))
